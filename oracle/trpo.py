@@ -5,7 +5,7 @@ Dead-simple, loop-based, zero JAX. Implements, per iteration:
   policy gradient g -> CG(10) on damped Gauss-Newton FVP -> step size
   beta = sqrt(2 delta / x^T H x) -> backtracking KL line search.
 
-The JAX/TPU engine must match this oracle's step direction (cosine >=
+The JAX engine must match this oracle's step direction (cosine >=
 0.999), step size (rel err <= 1e-3) and accepted line-search exponent on
 the same data (tests/test_parity.py).
 """

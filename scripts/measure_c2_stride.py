@@ -9,9 +9,9 @@ the REAL c2 config (3-link, 1024 envs, horizon 100):
   (b) a convergence A/B: seeded short training runs, exact vs strided,
       comparing return improvement.
 
-Run on the TPU chip (or CPU with JAX_PLATFORMS=cpu — same math).
-Writes results to stdout; the decision + numbers go into
-docs/performance.md and configs/__init__.py.
+Runs on any backend (the estimator statistics do not depend on the
+chip). Writes results to stdout; the decision and its numbers are in
+configs/__init__.py.
 """
 import dataclasses
 import json

@@ -29,7 +29,7 @@ def test_engine_matches_oracle_training_curve():
     # Band justified by a 6-seed sweep of this exact comparison (round 3):
     # observed ratios 0.961-1.055; (0.85, 1.18) gives ~3x the observed
     # spread yet fails a materially worse engine (the round-1 band
-    # 0.6-1.67 would not — VERDICT r2 weak #6).
+    # 0.6-1.67 would not).
     improvement_o = o_final - o_first
     improvement_e = e_final - o_first
     ratio = improvement_e / improvement_o

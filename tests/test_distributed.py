@@ -1,9 +1,8 @@
-"""Multi-process (DCN-leg) correctness (SURVEY.md sections 6.4/7;
-VERDICT r1 item 3): two CPU processes x 4 fake devices each, joined by
+"""Multi-process correctness (SURVEY.md sections 6.4/7): two CPU processes x 4 fake devices each, joined by
 `jax.distributed` through parallel/mesh.py:init_distributed into ONE
 8-device global mesh, must produce the same sharded training result as
 a single process with 8 fake devices. The cross-process psum here is
-the only DCN evidence obtainable without multi-host hardware.
+the only cross-host evidence obtainable without multi-host hardware.
 """
 import os
 import pathlib

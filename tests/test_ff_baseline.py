@@ -109,8 +109,8 @@ def test_normal_eq_ff_bf16_close():
 def test_values_ff_bf16_weight_cast_bounded():
     """values_ff on the bf16 path rounds the baseline WEIGHTS to bf16
     too (models/baseline.py:values_ff: w_o.astype(obs_ff.dtype)), the
-    one bf16 rounding site without its own bound until round 4
-    (VERDICT r3 weak #6). Isolate that term: fp64 reference on the SAME
+    one bf16 rounding site without its own bound until round 4.
+    Isolate that term: fp64 reference on the SAME
     bf16-quantised obs with EXACT weights — the residual is pure weight
     rounding + fp32 accumulation, <= a few bf16 ulps relative."""
     k1, k2 = jax.random.split(jax.random.PRNGKey(5))

@@ -1,5 +1,5 @@
 """Bound the fvp_subsample estimator error (SURVEY.md section 4.8
-spirit; VERDICT r1 item 6): c3-c5 run CG on a stride-8 subsample of the
+spirit): c3-c5 run CG on a stride-8 subsample of the
 batch (classic TRPO subsample_factor — the Fisher is an expectation, so
 a strided subsample estimates it at 1/8 the CG cost). These tests pin
 (a) the natural-gradient direction: cosine(x_sub, x_exact) at c3-like

@@ -18,8 +18,6 @@ GOLDEN_ENGINE = os.path.join(os.path.dirname(__file__), "golden",
                              "engine_c1_seed0.npz")
 GOLDEN_PROD = os.path.join(os.path.dirname(__file__), "golden",
                            "engine_c3small_fused_seed0.npz")
-GOLDEN_PROD_K = os.path.join(os.path.dirname(__file__), "golden",
-                             "engine_c3small_fused_pg_fvpff_seed0.npz")
 
 
 def test_oracle_matches_golden_run():
@@ -38,9 +36,9 @@ def test_oracle_matches_golden_run():
 
 
 def test_engine_matches_golden_run():
-    """Seeded JAX-engine training curve pinned the same way (VERDICT r1
-    item 9: the loose improvement-ratio convergence test would pass a
-    materially worse engine; this would not). fp32 + XLA-version
+    """Seeded JAX-engine training curve pinned the same way (the loose
+    improvement-ratio convergence test would pass a materially worse
+    engine; this would not). fp32 + XLA-version
     tolerance instead of the oracle's fp64 bit tolerance; regenerate via
     tests/golden/README.md when the engine contract changes on purpose."""
     from trpo_robot_control_tpu.trpo.train import train as engine_train
@@ -59,15 +57,12 @@ def test_engine_matches_golden_run():
                                g["logstd"], rtol=1e-4)
 
 
-def run_production_stack(n_iters=5, force_kernels=False):
+def run_production_stack(n_iters=5):
     """c3-small through the PRODUCTION c3-c5 stack on the CPU backend:
-    fused 3-D rollout kernel in interpret mode with eps-twin noise
-    (pack2 ACTIVE at block 256, bf16 kernel emission) + the
-    feature-first bf16 update path + stride-8 FVP subsampling.
-    force_kernels=True additionally forces the round-5 fused
-    surrogate-gradient and ff-native FVP kernels (interpret), pinning
-    the full five-kernel production composition. Deterministic per
-    seed; shared by the golden tests and the regeneration recipe
+    the fused rollout kernel in interpret mode with host-drawn action
+    noise and bf16 emission, the feature-first bf16 update path,
+    stride-8 FVP subsampling and the 1/8-env line search. Deterministic
+    per seed; shared by the golden test and the regeneration recipe
     (tests/golden/README.md)."""
     import jax
     import jax.numpy as jnp
@@ -76,24 +71,14 @@ def run_production_stack(n_iters=5, force_kernels=False):
     from trpo_robot_control_tpu.envs import arm
     from trpo_robot_control_tpu.ops.pallas.rollout3d_kernel import (
         pallas_rollout3d)
-    from trpo_robot_control_tpu.ops.pallas.rollout_kernel import pack2_ok
     from trpo_robot_control_tpu.trpo.train import init_state
     from trpo_robot_control_tpu.trpo.update import trpo_update
 
     # horizon 16: divisible by fvp_subsample=8 (ff-path stride
-    # precondition) and by the fast path's trig-refresh period K=8.
-    # moments_impl forced so the fused moments kernel's math is pinned
-    # on the CPU backend too (auto resolves to the XLA twin off-TPU).
-    import dataclasses
-    over = dict(moments_impl="pallas")
-    if force_kernels:
-        over.update(surrgrad_impl="pallas", fvp_impl="pallas")
-    cfg = C3_FRANKA7.replace(
-        n_envs=256, horizon=16,
-        trpo=dataclasses.replace(C3_FRANKA7.trpo, **over))
+    # precondition)
+    cfg = C3_FRANKA7.replace(n_envs=256, horizon=16)
     assert cfg.trpo.ff_store_dtype == "bf16"      # the shipped c3 mode
     assert cfg.trpo.ls_subsample == 8             # the shipped line search
-    assert pack2_ok(cfg, 256), "must pin the pack2-active kernel"
     state = init_state(cfg, seed=0)
 
     @jax.jit
@@ -103,7 +88,7 @@ def run_production_stack(n_iters=5, force_kernels=False):
         eps = jax.random.normal(
             k_eps, (cfg.horizon, cfg.n_envs, cfg.arm.n_joints))
         batch = pallas_rollout3d(
-            cfg, params, 0, eps=eps, block_b=256, interpret=True,
+            cfg, params, k_eps, eps=eps, interpret=True,
             q0=st0.q, qd0=st0.qd, tgt=st0.tgt,
             store_dtype=jnp.bfloat16)
         params2, w2, stats = trpo_update(cfg, params, w, batch)
@@ -118,33 +103,13 @@ def run_production_stack(n_iters=5, force_kernels=False):
 
 
 def test_production_stack_matches_golden_run():
-    """Pins the fused c3-c5 stack's math end to end (VERDICT r3 missing
-    #2): the c1 engine golden covers only the XLA path, so a subtle
-    drift in the 3-D kernel / ff layout / bf16 storage / stride-8 FVP
-    composition would previously pass every twin test. Any reassociation
-    or packing change in that stack now fails here on plain CPU."""
+    """Pins the fused c3-c5 stack's math end to end: the c1 engine
+    golden covers only the XLA path, so a subtle drift in the rollout
+    kernel / ff layout / bf16 storage / stride-8 FVP composition would
+    pass every twin test. Any reassociation in that stack fails here on
+    plain CPU."""
     params, hist = run_production_stack()
     g = np.load(GOLDEN_PROD)
-    np.testing.assert_array_equal([h["accepted"] for h in hist],
-                                  g["accepted"])
-    np.testing.assert_allclose([h["beta"] for h in hist], g["beta"],
-                               rtol=1e-4)
-    np.testing.assert_allclose([h["kl"] for h in hist], g["kl"],
-                               rtol=1e-3, atol=1e-8)
-    np.testing.assert_allclose([h["mean_return"] for h in hist],
-                               g["mean_return"], rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(params["logstd"]),
-                               g["logstd"], rtol=1e-4)
-
-
-def test_production_stack_kernels_match_golden_run():
-    """Same pin with the round-5 fused surrogate-gradient and
-    ff-native FVP kernels FORCED (interpret): the five-kernel
-    production composition — any reassociation, packing, or layout
-    change in pg_kernel.py / fvp_ff_kernel.py now fails on plain CPU
-    rather than only in the on-chip checks."""
-    params, hist = run_production_stack(force_kernels=True)
-    g = np.load(GOLDEN_PROD_K)
     np.testing.assert_array_equal([h["accepted"] for h in hist],
                                   g["accepted"])
     np.testing.assert_allclose([h["beta"] for h in hist], g["beta"],

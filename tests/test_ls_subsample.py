@@ -1,18 +1,18 @@
-"""Bound the ls_subsample estimator (VERDICT r3 next-4 follow-on): the
+"""Bound the ls_subsample estimator: the
 line-search acceptance statistics (surrogate improvement, mean KL) are
 batch expectations, so c3-c5 estimate them on a 1/8 ENV subsample — each
-candidate eval is a full forward pass over the batch (~10 ms at c5), so
+candidate eval is a full forward pass over the batch, so
 the strided estimate costs 1/8. The subsample unit is whole
 trajectories (every 8th env, a sharding-invariant strided set): envs
 are i.i.d. by construction (reset state, task family, action noise all
 per-env random), while a TIME stride is a measurably biased estimator
 (GAE advantages and the state distribution are time-structured;
-measured at c3-small: KL off 2-3x, mean adv off ~9 sigma —
-docs/performance.md).
+measured at c3-small: KL off 2-3x, mean adv off ~9 sigma).
 
 These tests pin (a) accepted-k agreement and the resulting parameter
 equality at c3-small scale, and (b) the KL estimate's relative error.
-Full-scale agreement + convergence A/B: docs/performance.md.
+Full-scale agreement + convergence A/B: scripts/measure_ls_subsample.py
+and the c3 note in configs/__init__.py.
 """
 import dataclasses
 
@@ -96,7 +96,7 @@ def test_ls_subsample_env_stride_unbiased_vs_time_stride():
 
 
 def test_ls_subsample_obs_ff_without_actions_ff_alignment():
-    """ADVICE r4 (medium): with obs_ff present but actions_ff absent
+    """With obs_ff present but actions_ff absent
     and ls_subsample > 1, adv is (T, N) — the env-strided line-search
     slice must transpose it first (update.py k_ls non-ff branch) or the
     candidate surrogates pair ratios with the WRONG advantages. The

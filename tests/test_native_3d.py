@@ -1,5 +1,5 @@
 """Native C++ backend, 3-D RNEA path (SURVEY.md section 3 "CPU compute
-implementation" row; VERDICT r1 item 8): the general world-frame RNEA
+implementation" row): the general world-frame RNEA
 integrator must match oracle/dynamics.py step-for-step at fp64
 tolerance, the c3-small native update must match the oracle update, and
 the 3-D rollout (7-DoF + gravity + obstacle) must be sane/deterministic.
@@ -91,8 +91,7 @@ def test_native_training_3d_stable():
     iterations — the JAX engine is equally flat here, verified), so this
     asserts the training CONTRACT instead: finite stats, KL within the
     trust region, steps accepted, and returns staying in band across 12
-    updates. Convergence at scale is evidenced in docs/performance.md;
-    exactness is pinned by the oracle-parity tests above."""
+    updates. Exactness is pinned by the oracle-parity tests above."""
     cfg = CFG.replace(n_envs=64, horizon=25)
     rng = np.random.RandomState(0)
     params = onet.init_params(rng, cfg.arm.obs_dim, cfg.arm.n_joints,

@@ -1,10 +1,7 @@
-"""Fused planar rollout kernel vs its twins (SURVEY.md section 6.3):
-
-1. feature-first closed-form dynamics (rollout_reference) == the generic
-   RNEA path (envs/arm.py) given identical initial states and noise;
-2. the Pallas kernel (interpret mode) == rollout_reference;
-3. PRNG production mode: deterministic per seed, sane statistics.
-"""
+"""The fused rollout kernel on the planar arms (c1/c2) in interpret mode:
+the component math against the generic RNEA path, the kernel against
+its plain twin, the zero-padded in-kernel MLP against the plain MLP at
+non-power-of-two widths, and env counts that need padding to the tile."""
 import numpy as np
 import pytest
 
@@ -12,16 +9,16 @@ import jax
 import jax.numpy as jnp
 
 from trpo_robot_control_tpu.configs import C1_REACHER2, C2_REACHER3
+from trpo_robot_control_tpu.configs.base import TRPOSpec
 from trpo_robot_control_tpu.envs import arm
 from trpo_robot_control_tpu.models import policy
-from trpo_robot_control_tpu.ops.pallas.rollout_kernel import (
-    _policy_ff, _policy_ff_pack2, pack2_ok, pack2_weights, pallas_rollout,
-    rollout_reference)
+from trpo_robot_control_tpu.ops.pallas.rollout3d_kernel import (
+    _mlp_rows, _padded_mlp, _policy_ff, pallas_rollout3d,
+    rollout3d_reference, rollout_tile)
 
 
 def _setup(cfg, N, seed=0):
-    key = jax.random.PRNGKey(seed)
-    k1, k2, k3 = jax.random.split(key, 3)
+    k1, k2, k3 = jax.random.split(jax.random.PRNGKey(seed), 3)
     params = policy.init_params(k1, cfg.obs_dim, cfg.arm.n_joints,
                                 cfg.trpo.hidden, cfg.trpo.logstd_init)
     state0 = arm.reset(cfg, k2, N)
@@ -30,13 +27,11 @@ def _setup(cfg, N, seed=0):
 
 
 def _rnea_path_rollout(cfg, params, state0, eps):
-    """Standard-path rollout (generic RNEA dynamics) with FIXED noise."""
     sigma = jnp.exp(params["logstd"])
 
     def body(state, eps_t):
         o = arm.observe(cfg, state)
-        mu = policy.mean_net(params, o)
-        a = mu + sigma * eps_t
+        a = policy.mean_net(params, o) + sigma * eps_t
         state2, r = arm.step(cfg, state, a)
         return state2, (o, a, r)
 
@@ -46,121 +41,102 @@ def _rnea_path_rollout(cfg, params, state0, eps):
                 rewards=jnp.swapaxes(rew, 0, 1))
 
 
+def _kernel_vs_reference(cfg, N, atol=1e-5, **kw):
+    params, state0, eps = _setup(cfg, N)
+    ref = jax.jit(lambda: rollout3d_reference(cfg, params, state0.q,
+                                              state0.qd, state0.tgt,
+                                              eps))()
+    pal = pallas_rollout3d(cfg, params, jax.random.PRNGKey(0), n_envs=N,
+                           eps=eps, interpret=True, q0=state0.q,
+                           qd0=state0.qd, tgt=state0.tgt, **kw)
+    for k in ("obs", "actions", "rewards"):
+        assert pal[k].shape == ref[k].shape, k
+        np.testing.assert_allclose(np.asarray(pal[k]),
+                                   np.asarray(ref[k]), atol=atol,
+                                   err_msg=k)
+    return pal
+
+
 @pytest.mark.parametrize("cfg,N", [(C1_REACHER2.replace(horizon=20), 16),
                                    (C2_REACHER3.replace(horizon=15), 8)])
 def test_feature_first_math_matches_rnea_path(cfg, N):
     params, state0, eps = _setup(cfg, N)
     ref = jax.jit(lambda: _rnea_path_rollout(cfg, params, state0, eps))()
-    ff = jax.jit(lambda: rollout_reference(cfg, params, state0.q,
-                                           state0.qd, state0.tgt, eps))()
-    # closed-form planar vs RNEA: same math, different op order (fp32);
-    # trajectories compound, so horizons here are short
-    np.testing.assert_allclose(np.asarray(ff["obs"]),
-                               np.asarray(ref["obs"]), atol=2e-4)
-    np.testing.assert_allclose(np.asarray(ff["actions"]),
-                               np.asarray(ref["actions"]), atol=2e-4)
-    np.testing.assert_allclose(np.asarray(ff["rewards"]),
-                               np.asarray(ref["rewards"]), atol=5e-4)
+    ff = jax.jit(lambda: rollout3d_reference(cfg, params, state0.q,
+                                             state0.qd, state0.tgt,
+                                             eps))()
+    for k, atol in (("obs", 5e-5), ("actions", 5e-5), ("rewards", 2e-4)):
+        np.testing.assert_allclose(np.asarray(ff[k]), np.asarray(ref[k]),
+                                   atol=atol, err_msg=k)
 
 
 def test_pallas_kernel_matches_reference_interpret():
-    cfg = C2_REACHER3.replace(horizon=10)
-    N = 256
-    params, state0, eps = _setup(cfg, N)
-    ref = jax.jit(lambda: rollout_reference(cfg, params, state0.q,
-                                            state0.qd, state0.tgt, eps))()
-    pal = pallas_rollout(cfg, params, 0, n_envs=N, eps=eps, block_b=128,
-                         interpret=True, q0=state0.q, qd0=state0.qd,
-                         tgt=state0.tgt)
-    for k in ("obs", "actions", "rewards"):
-        np.testing.assert_allclose(np.asarray(pal[k]), np.asarray(ref[k]),
-                                   atol=1e-5, err_msg=k)
+    _kernel_vs_reference(C2_REACHER3.replace(horizon=10), 64)
 
 
-@pytest.mark.parametrize("do,hidden,da,B", [
-    (9, (64, 64), 2, 256),       # c1 shapes
-    (12, (64, 64), 3, 256),      # c2 shapes
-    (24, (64, 64), 7, 512),      # c3-c5 shapes (obs_dim 8-multiple)
-    (11, (64, 64), 5, 256),      # non-8-multiple obs_dim (zero-pad rows)
-    (7, (32,), 7, 256),          # single hidden layer, narrow
-])
-def test_pack2_policy_math_equals_unpacked(do, hidden, da, B):
-    """Direct unit test of the pair-packed MLP against the plain one:
-    pure trace-level jnp math, no kernel or TPU needed. Localises a
-    packing/layout regression that would otherwise only fail the
-    whole-kernel on-TPU checks (VERDICT r3 weak #2)."""
-    sizes = [do] + list(hidden) + [da]
-    key = jax.random.PRNGKey(do * 1000 + B)
-    ks = jax.random.split(key, 2 * (len(sizes) - 1) + 1)
-    Ws = [jax.random.normal(ks[i], (sizes[i], sizes[i + 1]))
-          for i in range(len(sizes) - 1)]
-    bs = [0.1 * jax.random.normal(ks[len(sizes) - 1 + i],
-                                  (sizes[i + 1],))
-          for i in range(len(sizes) - 1)]
-    obs = jax.random.normal(ks[-1], (do, B))
-    ref = jax.jit(lambda: _policy_ff(Ws, [b[:, None] for b in bs], obs))()
-    Wbd, bbd = pack2_weights(Ws, bs)
-    out = jax.jit(lambda: _policy_ff_pack2(Wbd, bbd, obs, da))()
-    assert out.shape == ref.shape == (da, B)
-    # block-diagonal zeros contribute exact 0.0; only summation grouping
-    # can differ, so the tolerance is a few fp32 ulps
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=1e-6, atol=1e-6)
+@pytest.mark.parametrize("N", [5, 17, 33])
+def test_kernel_pads_env_count_interpret(N):
+    """Env counts that are not a multiple of the tile: padded envs run
+    zero states and are dropped, so every real env matches the twin."""
+    bb, _ = rollout_tile(N)
+    assert N % bb or N < bb
+    _kernel_vs_reference(C1_REACHER2.replace(horizon=6), N)
 
 
-def test_pallas_kernel_pack2_and_bf16_interpret():
-    """CI coverage for the PRODUCTION kernel modes (VERDICT r3 missing
-    #1): block_b=256 activates the pair-packed in-kernel MLP
-    (pack2_ok), and store_dtype=bf16 exercises kernel-side emission —
-    both previously tested only compiled on-TPU (scripts/tpu_checks.py).
-    Breaking pack2 or the bf16 store path now fails plain CPU pytest."""
-    cfg = C2_REACHER3.replace(horizon=10)
-    N = 256
-    assert pack2_ok(cfg, 256), "c2 shapes must activate pack2 at bb=256"
-    params, state0, eps = _setup(cfg, N)
-    ref = jax.jit(lambda: rollout_reference(cfg, params, state0.q,
-                                            state0.qd, state0.tgt, eps))()
-    kw = dict(n_envs=N, eps=eps, block_b=256, interpret=True,
-              q0=state0.q, qd0=state0.qd, tgt=state0.tgt)
-    pal = pallas_rollout(cfg, params, 0, **kw)
-    for k in ("obs", "actions", "rewards"):
-        np.testing.assert_allclose(np.asarray(pal[k]), np.asarray(ref[k]),
-                                   atol=1e-5, err_msg=k)
-    # bf16 emission: identical in-kernel fp32 math, rounded ONCE at the
-    # store -> bitwise equal to the fp32 run rounded to bf16
-    pal16 = pallas_rollout(cfg, params, 0, store_dtype=jnp.bfloat16, **kw)
-    assert pal16["obs_ff"].dtype == jnp.bfloat16
-    assert pal16["actions_ff"].dtype == jnp.bfloat16
-    np.testing.assert_array_equal(
-        np.asarray(pal16["obs_ff"]),
-        np.asarray(pal["obs_ff"].astype(jnp.bfloat16)))
-    np.testing.assert_array_equal(
-        np.asarray(pal16["actions_ff"]),
-        np.asarray(pal["actions_ff"].astype(jnp.bfloat16)))
-    # rewards stay fp32 and exact
+@pytest.mark.parametrize("hidden", [(48, 40), (33, 57)])
+def test_kernel_non_pow2_hidden_interpret(hidden):
+    cfg = C1_REACHER2.replace(horizon=6, trpo=TRPOSpec(hidden=hidden))
+    _kernel_vs_reference(cfg, 24)
+
+
+def test_pallas_kernel_bf16_interpret():
+    """bf16 emission: the in-kernel trajectory stays fp32 and rounds once
+    at the store, so it equals the fp32 run rounded to bf16."""
+    cfg = C2_REACHER3.replace(horizon=6)
+    pal = _kernel_vs_reference(cfg, 40)
+    params, state0, eps = _setup(cfg, 40)
+    pal16 = pallas_rollout3d(cfg, params, jax.random.PRNGKey(0),
+                             n_envs=40, eps=eps, interpret=True,
+                             q0=state0.q, qd0=state0.qd, tgt=state0.tgt,
+                             store_dtype=jnp.bfloat16)
+    for k in ("obs_ff", "actions_ff"):
+        assert pal16[k].dtype == jnp.bfloat16
+        np.testing.assert_array_equal(
+            np.asarray(pal16[k]), np.asarray(pal[k].astype(jnp.bfloat16)))
     assert pal16["rewards"].dtype == jnp.float32
     np.testing.assert_array_equal(np.asarray(pal16["rewards"]),
                                   np.asarray(pal["rewards"]))
 
 
-@pytest.mark.tpu
-@pytest.mark.skipif(jax.default_backend() == "cpu",
-                    reason="pltpu.prng_seed has no CPU lowering; "
-                           "run on TPU (scripts/tpu_checks.py)")
-def test_pallas_prng_mode_deterministic_and_sane():
-    cfg = C1_REACHER2.replace(horizon=10)
-    N = 128
-    params, state0, _ = _setup(cfg, N)
-    kw = dict(n_envs=N, block_b=128, interpret=False, q0=state0.q,
-              qd0=state0.qd, tgt=state0.tgt)
-    a = pallas_rollout(cfg, params, 7, **kw)
-    b = pallas_rollout(cfg, params, 7, **kw)
-    np.testing.assert_array_equal(np.asarray(a["actions"]),
-                                  np.asarray(b["actions"]))
-    # action noise statistics: actions - mu should be ~N(0, sigma^2)
-    ref = rollout_reference(cfg, params, state0.q, state0.qd, state0.tgt,
-                            jnp.zeros((cfg.horizon, N, 2)))
-    # same states only at t=0; just sanity-check overall spread + finiteness
-    assert np.isfinite(np.asarray(a["obs"])).all()
-    spread = np.std(np.asarray(a["actions"]))
-    assert 0.05 < spread < 5.0, spread
+@pytest.mark.parametrize("do,hidden,da,B", [
+    (9, (64, 64), 2, 32),        # c1 widths
+    (12, (48, 40), 3, 16),       # non-power-of-two hidden
+    (24, (33, 57), 7, 32),       # odd hidden, 7-DoF head
+    (27, (64,), 7, 64),          # c5 obs, one hidden layer
+])
+def test_padded_mlp_equals_plain(do, hidden, da, B):
+    """The kernel's MLP (one-hot scatter of obs rows, pl.dot on weights
+    zero-padded to powers of two, masked row sums back out) equals the
+    plain feature-first MLP: the padding contributes exact zeros."""
+    k1, k2 = jax.random.split(jax.random.PRNGKey(do + da))
+    params = policy.init_params(k1, do, da, hidden, -0.5)
+    params = {k: v + 0.1 for k, v in params.items()}   # nonzero biases
+    obs = jax.random.normal(k2, (do, B))
+    L = len(hidden) + 1
+    ref = _policy_ff([params[f"W{i}"] for i in range(L)],
+                     [params[f"b{i}"][:, None] for i in range(L)], obs)
+    Ws, bs = _padded_mlp(params)
+    for W in Ws:
+        assert all(d >= 16 and d & (d - 1) == 0 for d in W.shape)
+    out = _mlp_rows(Ws, bs, list(obs), da, jax.lax.Precision.HIGHEST)
+    np.testing.assert_allclose(np.stack(out), np.asarray(ref), atol=1e-5)
+
+
+def test_rollout_tile():
+    """One env per thread in one-warp programs; small counts get the
+    smallest power-of-two tile >= 16 that covers them."""
+    assert rollout_tile(65536) == (32, 1)
+    assert rollout_tile(64) == (32, 1)
+    assert rollout_tile(20) == (32, 1)
+    assert rollout_tile(5) == (16, 1)
+    assert rollout_tile(16) == (16, 1)

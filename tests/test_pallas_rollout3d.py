@@ -1,6 +1,6 @@
-"""Fused 3-D rollout kernel vs its twins: component math == generic RNEA
-path (which is itself validated against the fp64 oracle and MuJoCo), and
-Pallas kernel == jnp twin in interpret mode."""
+"""Fused rollout kernel on the 7-DoF arm vs its twins: component math ==
+generic RNEA path (which is itself validated against the fp64 oracle and
+MuJoCo), and the Pallas-Triton kernel == plain twin in interpret mode."""
 import numpy as np
 import pytest
 
@@ -60,98 +60,66 @@ def test_component_math_matches_rnea_path(cfg):
                                np.asarray(ref["rewards"]), atol=2e-3)
 
 
+def _kernel_vs_reference(cfg, N, atol=1e-5, **kw):
+    params, state0, eps = _setup(cfg, N)
+    ref = jax.jit(lambda: rollout3d_reference(cfg, params, state0.q,
+                                              state0.qd, state0.tgt, eps,
+                                              task=state0.task))()
+    pal = pallas_rollout3d(cfg, params, jax.random.PRNGKey(0), n_envs=N,
+                           eps=eps, interpret=True, q0=state0.q,
+                           qd0=state0.qd, tgt=state0.tgt,
+                           task=state0.task, **kw)
+    for k in ("obs", "actions", "rewards"):
+        np.testing.assert_allclose(np.asarray(pal[k]),
+                                   np.asarray(ref[k]), atol=atol,
+                                   err_msg=k)
+    return pal
+
+
 def test_pallas3d_kernel_matches_reference_interpret():
-    cfg = C3_FRANKA7.replace(horizon=5)
-    N = 128
-    params, state0, eps = _setup(cfg, N)
-    ref = jax.jit(lambda: rollout3d_reference(cfg, params, state0.q,
-                                              state0.qd, state0.tgt,
-                                              eps))()
-    pal = pallas_rollout3d(cfg, params, 0, n_envs=N, eps=eps,
-                           block_b=128, interpret=True, q0=state0.q,
-                           qd0=state0.qd, tgt=state0.tgt)
-    for k in ("obs", "actions", "rewards"):
-        np.testing.assert_allclose(np.asarray(pal[k]),
-                                   np.asarray(ref[k]), atol=1e-5,
-                                   err_msg=k)
+    """7-DoF reach; 40 envs pad to two 32-env programs."""
+    _kernel_vs_reference(C3_FRANKA7.replace(horizon=5), 40)
 
 
-def test_pallas3d_kernel_pack2_and_bf16_interpret():
-    """CI coverage for the production 3-D kernel modes (VERDICT r3
-    missing #1): block_b=256 activates the pair-packed MLP and
-    store_dtype=bf16 exercises kernel emission — the c3-c5 shipped
-    configuration, previously only tested compiled on-TPU."""
-    from trpo_robot_control_tpu.ops.pallas.rollout_kernel import pack2_ok
-    cfg = C3_FRANKA7.replace(horizon=5)
-    N = 256
-    assert pack2_ok(cfg, 256), "c3 shapes must activate pack2 at bb=256"
+def test_pallas3d_kernel_obstacle_interpret():
+    """c4's obstacle penalty inside the kernel."""
+    _kernel_vs_reference(C4_FRANKA7_OBSTACLE.replace(horizon=4), 32)
+
+
+def test_pallas3d_kernel_bf16_interpret():
+    """The shipped c3-c5 mode: bf16 emission of obs_ff/actions_ff. The
+    in-kernel trajectory stays fp32 and rounds once at the store, so it
+    equals the fp32 run rounded to bf16; rewards stay fp32."""
+    cfg = C3_FRANKA7.replace(horizon=4)
+    N = 32
+    pal = _kernel_vs_reference(cfg, N)
     params, state0, eps = _setup(cfg, N)
-    ref = jax.jit(lambda: rollout3d_reference(cfg, params, state0.q,
-                                              state0.qd, state0.tgt,
-                                              eps))()
-    kw = dict(n_envs=N, eps=eps, block_b=256, interpret=True,
-              q0=state0.q, qd0=state0.qd, tgt=state0.tgt)
-    pal = pallas_rollout3d(cfg, params, 0, **kw)
-    for k in ("obs", "actions", "rewards"):
-        np.testing.assert_allclose(np.asarray(pal[k]),
-                                   np.asarray(ref[k]), atol=1e-5,
-                                   err_msg=k)
-    # bf16 emission: same in-kernel fp32 trajectory, rounded once at the
-    # store -> bitwise equal to the fp32 run rounded to bf16
-    pal16 = pallas_rollout3d(cfg, params, 0, store_dtype=jnp.bfloat16,
-                             **kw)
-    assert pal16["obs_ff"].dtype == jnp.bfloat16
-    assert pal16["actions_ff"].dtype == jnp.bfloat16
-    np.testing.assert_array_equal(
-        np.asarray(pal16["obs_ff"]),
-        np.asarray(pal["obs_ff"].astype(jnp.bfloat16)))
-    np.testing.assert_array_equal(
-        np.asarray(pal16["actions_ff"]),
-        np.asarray(pal["actions_ff"].astype(jnp.bfloat16)))
-    assert pal16["rewards"].dtype == jnp.float32
+    pal16 = pallas_rollout3d(cfg, params, jax.random.PRNGKey(0), n_envs=N,
+                             eps=eps, interpret=True, q0=state0.q,
+                             qd0=state0.qd, tgt=state0.tgt,
+                             store_dtype=jnp.bfloat16)
+    for k in ("obs_ff", "actions_ff"):
+        assert pal16[k].dtype == jnp.bfloat16
+        np.testing.assert_array_equal(
+            np.asarray(pal16[k]), np.asarray(pal[k].astype(jnp.bfloat16)))
+    assert pal16["rewards_ff"].dtype == jnp.float32
     np.testing.assert_array_equal(np.asarray(pal16["rewards"]),
                                   np.asarray(pal["rewards"]))
 
 
-def test_pallas3d_chunked_matches_unchunked_interpret():
-    """The T-chunked grid (round 4: state carried in VMEM scratch
-    across sequential chunk steps so wide tiles fit) must reproduce the
-    unchunked kernel bit-for-bit in eps mode — chunk boundaries only
-    add exact-trig refreshes, which the tolerance absorbs. Covers the
-    multi-task carry (tgt mutated by the track family across chunk
-    boundaries)."""
-    from trpo_robot_control_tpu.configs import C5_MULTITASK
-    cfg = C5_MULTITASK.replace(horizon=8)
-    N = 128
-    params, state0, eps = _setup(cfg, N)
-    kw = dict(n_envs=N, eps=eps, block_b=128, interpret=True,
-              q0=state0.q, qd0=state0.qd, tgt=state0.tgt,
-              task=state0.task)
-    ref = pallas_rollout3d(cfg, params, 0, **kw)
-    chk = pallas_rollout3d(cfg, params, 0, t_chunk=4, **kw)
-    for k in ("obs", "actions", "rewards"):
-        np.testing.assert_allclose(np.asarray(chk[k]),
-                                   np.asarray(ref[k]), atol=2e-5,
-                                   err_msg=k)
-
-
-def test_auto_tile3d_choices():
-    """Tile/chunk selection: wide chunked tiles for the big shipped
-    configs, unchunked fallbacks for terminating/small cases."""
-    from trpo_robot_control_tpu.configs import (C3_FRANKA7, C5_MULTITASK)
-    from trpo_robot_control_tpu.ops.pallas.rollout3d_kernel import (
-        auto_tile3d)
-    bb, tc = auto_tile3d(C3_FRANKA7, C3_FRANKA7.n_envs)
-    assert bb == 512 and tc is not None and C3_FRANKA7.horizon % tc == 0
-    assert tc % 8 == 0                  # no extra trig refreshes
-    bb, tc = auto_tile3d(C5_MULTITASK, C5_MULTITASK.n_envs)
-    assert bb == 512 and tc is not None
-    # terminating: unchunked (in-kernel resets keep the per-step kernel)
-    bb, tc = auto_tile3d(C3_FRANKA7.replace(done_dist=0.05), 4096)
-    assert tc is None
-    # tiny env counts: single small tile, no chunking
-    bb, tc = auto_tile3d(C3_FRANKA7.replace(horizon=8), 64)
-    assert bb == 64 and tc is None
+def test_pallas3d_layouts_agree():
+    """The feature-first views and the batch-major copies hold the same
+    samples: obs_ff (T, do, N) vs obs (N, T, do), rewards_ff (T, N)."""
+    cfg = C3_FRANKA7.replace(horizon=3)
+    pal = _kernel_vs_reference(cfg, 20)
+    np.testing.assert_array_equal(
+        np.asarray(pal["obs"]),
+        np.transpose(np.asarray(pal["obs_ff"]), (2, 0, 1)))
+    np.testing.assert_array_equal(
+        np.asarray(pal["actions"]),
+        np.transpose(np.asarray(pal["actions_ff"]), (2, 0, 1)))
+    np.testing.assert_array_equal(np.asarray(pal["rewards"]),
+                                  np.asarray(pal["rewards_ff"]).T)
 
 
 def test_multitask_component_math_matches_rnea_path():
@@ -174,17 +142,4 @@ def test_multitask_component_math_matches_rnea_path():
 
 def test_multitask_pallas_kernel_interpret():
     from trpo_robot_control_tpu.configs import C5_MULTITASK
-    cfg = C5_MULTITASK.replace(horizon=4)
-    N = 128
-    params, state0, eps = _setup(cfg, N)
-    ref = jax.jit(lambda: rollout3d_reference(
-        cfg, params, state0.q, state0.qd, state0.tgt, eps,
-        task=state0.task))()
-    pal = pallas_rollout3d(cfg, params, 0, n_envs=N, eps=eps,
-                           block_b=128, interpret=True, q0=state0.q,
-                           qd0=state0.qd, tgt=state0.tgt,
-                           task=state0.task)
-    for k in ("obs", "actions", "rewards"):
-        np.testing.assert_allclose(np.asarray(pal[k]),
-                                   np.asarray(ref[k]), atol=1e-5,
-                                   err_msg=k)
+    _kernel_vs_reference(C5_MULTITASK.replace(horizon=4), 48)

@@ -64,44 +64,13 @@ def test_sharded_update_equals_unsharded(mesh8):
     assert np.abs(v1 - v2).max() / scale < 2e-2
 
 
-def test_sharded_update_pallas_fvp_equals_unsharded(mesh8):
-    """The fused FVP kernel composes with shard_map + psum (VERDICT r1
-    item 2: the c4/c5 configuration is kernel + shard_map + pmean): the
-    sharded update with fvp_impl='pallas' (interpret on CPU) must match
-    both the unsharded pallas update and the XLA-FVP update."""
-    import dataclasses
-    cfg = CFG.replace(trpo=dataclasses.replace(CFG.trpo,
-                                               fvp_impl="pallas"))
-    state, batch = _collect()
-    p_xla, _, _ = jax.jit(lambda p, w, b: trpo_update(CFG, p, w, b))(
-        state.params, state.w, batch)
-    p1, w1, st1 = jax.jit(lambda p, w, b: trpo_update(cfg, p, w, b))(
-        state.params, state.w, batch)
-
-    sharded = make_sharded_update(cfg, mesh8)
-    p2, w2, st2 = sharded(state.params, state.w, shard_batch(mesh8, batch))
-
-    th_x, _ = ravel_pytree(p_xla)
-    th1, _ = ravel_pytree(p1)
-    th2, _ = ravel_pytree(p2)
-    # pallas vs xla FVP on the full batch: same math, fused accumulation
-    np.testing.assert_allclose(np.asarray(th1), np.asarray(th_x),
-                               rtol=2e-3, atol=2e-4)
-    # sharded pallas vs unsharded pallas: psum reduction order only
-    np.testing.assert_allclose(np.asarray(th1), np.asarray(th2),
-                               rtol=2e-3, atol=2e-4)
-    assert int(st1["accepted"]) == int(st2["accepted"])
-    np.testing.assert_allclose(float(st1["beta"]), float(st2["beta"]),
-                               rtol=2e-3)
-
-
 def test_sharded_train_step_pallas_rollout_runs(mesh8):
     """The fused rollout kernel executes inside the sharded train step
-    (interpret on CPU; each shard rolls out its own env slice). The
-    kernel's on-chip PRNG stream differs from the XLA path's, so this
-    checks execution + physics sanity, not bitwise equality (that
-    equivalence is covered per-kernel in test_pallas_rollout*.py and on
-    the chip by scripts/tpu_checks.py)."""
+    (interpret on CPU; each shard rolls out its own 4-env slice, padded
+    to the kernel's tile). The kernel draws its action noise in bulk,
+    so its stream differs from the XLA path's: this checks execution and
+    the update on the kernel's feature-first batch, not bitwise
+    equality (tests/test_pallas_rollout*.py cover the kernel)."""
     cfg = CFG.replace(n_envs=32, horizon=8, rollout_impl="pallas")
     step = make_sharded_train_step(cfg, mesh8, donate=False)
     state = init_state(cfg, seed=0)
@@ -124,7 +93,7 @@ def test_sharded_train_step_improves(mesh8):
 
 def test_mesh_axis_sizes(mesh8):
     assert mesh8.shape["data"] == 8
-    assert mesh8.shape["model"] == 1
+    assert mesh8.axis_names == ("data",)
 
 
 def test_uneven_envs_rejected(mesh8):

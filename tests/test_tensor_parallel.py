@@ -73,8 +73,7 @@ def test_tp_update_equals_unsharded(n_data, n_model):
 
 
 def test_tp_update_equals_unsharded_mlp_baseline():
-    """TP + the MLP value baseline (VERDICT r2 weak item 5: the old
-    NotImplementedError guard). The baseline is batch-space — replicated
+    """TP + the MLP value baseline. The baseline is batch-space — replicated
     across 'model', Adam-refit with 'data'-reduced gradients — so the TP
     update must still equal the plain update."""
     import dataclasses
@@ -101,14 +100,11 @@ def test_tp_update_equals_unsharded_mlp_baseline():
 
 
 def test_tp_train_step_fused_rollout_interpret():
-    """The TP train step now collects with the same rollout resolver as
-    the DP path (fused kernels on TPU; VERDICT r2 weak item 5's second
-    seam). Force the planar kernel in interpret mode under the TP
-    shard_map (check_vma=True) and check the step trains. 512 envs /
-    4 data shards = 128 local envs — the kernel's minimum tile, so the
-    fused path is actually taken (smaller counts degrade to the scan
-    path and would test nothing)."""
-    cfg = CFG.replace(n_envs=512, horizon=10, rollout_impl="pallas")
+    """The TP train step collects with the same rollout resolver as the
+    DP path. Force the fused rollout kernel (interpret mode) under the
+    TP shard_map and check the step trains; 40 envs / 4 data shards =
+    10 local envs, padded to the kernel's 16-env tile."""
+    cfg = CFG.replace(n_envs=40, horizon=10, rollout_impl="pallas")
     mesh = make_mesh(n_data=4, n_model=2)
     step = make_sharded_train_step(cfg, mesh, donate=False)
     state = init_state(cfg, seed=0)

@@ -18,7 +18,7 @@ def main(argv=None):
     ap.add_argument("--n-envs", type=int, default=None)
     ap.add_argument("--horizon", type=int, default=None)
     ap.add_argument("--platform", default=None,
-                    help="force jax platform (cpu/tpu); default: auto")
+                    help="force jax platform (cpu/gpu); default: auto")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--resume", default=None,
@@ -32,14 +32,14 @@ def main(argv=None):
     ap.add_argument("--done-dist", type=float, default=None,
                     help="early episode termination distance (0 = fixed "
                          "horizon; >0 = end + auto-reset on reaching "
-                         "the target, in-kernel on TPU)")
+                         "the target; runs the XLA scan rollout)")
     ap.add_argument("--baseline", choices=("linear", "mlp"), default=None,
                     help="value baseline: linear ridge fit (default, "
                          "oracle parity) or small-MLP Adam refit")
     ap.add_argument("--trpo", action="append", default=[],
                     metavar="KEY=VALUE",
                     help="override any TRPOSpec field, e.g. "
-                         "--trpo fvp_impl=xla --trpo cg_iters=20 "
+                         "--trpo fvp_subsample=4 --trpo cg_iters=20 "
                          "--trpo delta=0.005 (repeatable; values are "
                          "cast to the field's current type)")
     args = ap.parse_args(argv)
@@ -47,6 +47,9 @@ def main(argv=None):
     import jax
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
+
+    from ..utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from ..configs import CONFIGS
     from ..parallel.mesh import init_distributed, make_mesh, train_sharded
@@ -115,6 +118,7 @@ def main(argv=None):
     log.close()
     final = history[-1]["mean_return"] if history else float("nan")
     print(f"final mean return: {final:.3f}", file=sys.stderr)
+    return history
 
 
 if __name__ == "__main__":

@@ -1,10 +1,10 @@
 """The five driver experiment configs (BASELINE.json "configs" list).
 
 c1: 2-link planar reacher, 64 envs, horizon 50   (oracle-parity config)
-c2: 3-link reacher, 1024 envs, horizon 100       (single-chip fused FVP/CG)
-c3: 7-DoF Franka-like, 4096 envs, horizon 200    (Pallas rollout + FVP, 1 host)
-c4: 7-DoF + obstacle cost, 16k envs, 2 hosts     (psum-reduced CG)
-c5: multi-task suite, 64k envs                   (full training run)
+c2: 3-link reacher, 1024 envs, horizon 100
+c3: 7-DoF Franka-like, 4096 envs, horizon 200
+c4: 7-DoF + obstacle cost, 16k envs, horizon 200
+c5: multi-task suite (reach/track/push), 64k envs, horizon 200
 """
 from __future__ import annotations
 
@@ -66,7 +66,7 @@ C2_REACHER3 = ExperimentConfig(
     # scripts/measure_c2_stride.py): direction cosine vs exact stride-1
     # min 0.99956 over 3 seeds, and a 40-iter full-scale convergence A/B
     # indistinguishable from exact (final return -26.1 vs -25.7); stride
-    # 10 degrades convergence (-31.1). See docs/performance.md.
+    # 10 degrades convergence (-31.1).
     trpo=TRPOSpec(fvp_subsample=4),
     n_envs=1024, horizon=100, n_iters=200, seed=0,
 )
@@ -74,20 +74,18 @@ C2_REACHER3 = ExperimentConfig(
 # c3-c5 run bf16 STORAGE (not compute): the fused kernels emit
 # obs_ff/actions_ff in bf16 and the surrogate-gradient pass stores its
 # (T, h, N) activations/cotangents bf16 — every contraction still
-# accumulates fp32. Adopted from a measured decision (round 3): the
-# HBM-bound update passes shrink ~35%, the halved output blocks raise
-# the rollout tile to 256 which enables the pair-packed in-kernel MLP,
-# and a 40-iter full-scale c4 convergence A/B is indistinguishable from
-# fp32 (scripts/ab_bf16.py; docs/performance.md). Gradient/moment error
-# bounds: tests/test_ff_baseline.py. fvp_subsample stays 8 — measured
+# accumulates fp32. It halves the memory traffic of the batch-sized
+# update passes, and a 40-iter full-scale c4 convergence A/B is
+# indistinguishable from fp32. Gradient/moment error bounds:
+# tests/test_ff_baseline.py. fvp_subsample stays 8 — measured
 # at the cosine cliff's edge (scripts/measure_c45_stride.py).
 # ls_subsample=8 (round 4, scripts/measure_ls_subsample.py): the
 # line-search acceptance statistics are estimated on a 1/8 env-strided
 # subsample — measured at full scale: accepted-k agreement 139/140
 # iterations across c3-c5 (the one miss a near-boundary half-step),
 # KL estimate within 2.7%, and a 40-iter full-scale c4 convergence A/B
-# indistinguishable from exact (last5 -87.2 vs -88.5). Saves one full
-# forward pass over the batch per candidate eval (~8.6 ms at c5).
+# indistinguishable from exact (last5 -87.2 vs -88.5). Saves 7/8 of a
+# forward pass over the batch per candidate eval.
 # fvp_env_subsample (round 5, scripts/measure_fvp_env_stride.py): the
 # t-stride cliff is TIME bias, not sample count (c4 t-20 keeps 164k
 # samples yet hits 0.986 while c3's clean t-8 subsample is only 102k),
@@ -95,11 +93,11 @@ C2_REACHER3 = ExperimentConfig(
 # down to the c3-anchored ~100-200k: c4 e=4 (410k -> 102k samples;
 # cosine vs exact 0.9984/0.9992 across 2 seeds, vs e=1's own
 # 0.9989/0.9994), c5 e=8 (1.64M -> 205k; marginal cosine vs the
-# shipped t8 estimator 0.9997 — the exact comparator OOMs at c5 on one
-# chip, and c4 pins env-stride-vs-exact). Full-scale 40-iter A/Bs
+# shipped t8 estimator 0.9997 — the exact comparator did not fit at c5
+# on the 16 GB card of that round, and c4 pins env-stride-vs-exact). Full-scale 40-iter A/Bs
 # indistinguishable both configs (c4 last5 -87.3 vs -86.8; c5 -198.8
 # vs -199.8, strided arm ahead i.e. inside noise). CG block cost drops
-# ~4x/8x; docs/performance.md "Round 5: env-strided Fisher".
+# ~4x/8x.
 C3_FRANKA7 = ExperimentConfig(
     name="c3_franka7",
     arm=franka_like_arm(),

@@ -1,7 +1,7 @@
 """Experiment configuration dataclasses.
 
 Single source of truth for every frozen constant in the engine. Both the
-fp64 NumPy oracle (``oracle/``) and the JAX/TPU engine import these specs,
+fp64 NumPy oracle (``oracle/``) and the JAX engine import these specs,
 so the parity contract (SURVEY.md section 4) cannot drift between the two.
 
 Plain Python only — no JAX imports — so the oracle stays JAX-free.
@@ -115,28 +115,6 @@ class TRPOSpec:
     hidden: Tuple[int, ...] = (64, 64)
     logstd_init: float = -0.5
     baseline_reg: float = 1e-3     # ridge for the linear value baseline
-    # FVP implementation: "auto" -> fused Pallas kernel on TPU (the
-    # ff-native kernel when the batch is feature-first, tiles align,
-    # and the global subsample clears the measured crossover; the
-    # batch-major kernel otherwise), "pallas" forces the kernels
-    # (ff-native preferred, no size gate), "pallas_bm" forces the
-    # batch-major kernel (the A/B / fallback arm), "xla" = the
-    # jax.linearize form, "kl" = jvp(grad(KL)) reference.
-    fvp_impl: str = "auto"
-    # Baseline normal-equation moments (ff path): "auto" -> fused Pallas
-    # moments kernel on TPU when the env tile lane-aligns (one HBM pass
-    # over obs_ff instead of the XLA form's concat+Gram+cross, measured
-    # 10.5 -> ~1.5 ms at c5; ops/pallas/moments_kernel.py), else the
-    # normal_eq_ff twin ("xla"); "pallas" forces the kernel (interpret
-    # mode on CPU — tests/golden).
-    moments_impl: str = "auto"
-    # Surrogate policy gradient (ff path): "auto" -> fused Pallas
-    # kernel on TPU when the env tile lane-aligns (reads obs/act/adv
-    # ONCE, activations and cotangents never touch HBM — measured
-    # 1.6 -> 0.6 ms at c3, 37 -> 12.6 ms at c5 vs the XLA form;
-    # ops/pallas/pg_kernel.py), else the surrogate_grad_ff twin
-    # ("xla"); "pallas" forces the kernel (interpret mode on CPU).
-    surrgrad_impl: str = "auto"
     # Evaluate the Fisher on every k-th sample (classic TRPO
     # subsample_factor). 1 = exact (parity configs); larger values trade
     # a little Fisher estimation noise for proportionally cheaper CG.
@@ -152,8 +130,7 @@ class TRPOSpec:
     # ls_subsample), and with local N % k == 0 the strided env set is
     # sharding-invariant. 1 = exact (parity configs); c5 adopts 8 and
     # c4 adopts 4 from a measured decision (round 5,
-    # scripts/measure_fvp_env_stride.py — cosine + full-scale A/B;
-    # docs/performance.md).
+    # scripts/measure_fvp_env_stride.py — cosine + full-scale A/B).
     fvp_env_subsample: int = 1
     # Evaluate the LINE-SEARCH acceptance tests (surrogate improvement
     # and mean KL <= delta) on every k-th sample. Both are batch
@@ -163,7 +140,7 @@ class TRPOSpec:
     # paired (surr_old re-estimated on the same subsample), cancelling
     # the sample-selection noise. 1 = exact (parity configs); bounded by
     # tests/test_ls_subsample.py + the full-scale accepted-k agreement
-    # A/B in docs/performance.md.
+    # A/B noted in configs/__init__.py.
     ls_subsample: int = 1
     # Value baseline (SURVEY.md section 3: "linear time-feature fit or
     # small MLP"): "linear" = ridge normal-equation fit on phi(s, t)
@@ -175,22 +152,18 @@ class TRPOSpec:
     baseline_lr: float = 1e-2
     baseline_epochs: int = 10
     # Storage dtype for the feature-first pipeline's batch-sized
-    # intermediates: "f32" (exact) or "bf16". "bf16" gates FOUR sites,
+    # intermediates: "f32" (exact) or "bf16". "bf16" gates three sites,
     # each fp32-accumulating (storage rounds, contractions don't):
     #   1. the surrogate-gradient pass's (T, h, N) hidden activations /
-    #      cotangents (HBM-bound at c4/c5 scale; bf16 halves that
-    #      traffic — tests/test_ff_baseline.py::
+    #      cotangents (tests/test_ff_baseline.py::
     #      test_surrogate_grad_ff_bf16_close bounds the gradient error);
-    #   2. KERNEL-side emission of obs_ff/actions_ff (envs/arm.py:
-    #      make_rollout_fn passes store_dtype to the fused rollout
-    #      kernels), halving the rollout's output writes;
-    #   3. auto_block_b's VMEM output accounting (ops/pallas/
-    #      rollout_kernel.py) — halved blocks double the env tile to
-    #      256, which enables the pair-packed in-kernel MLP (pack2_ok);
-    #   4. the baseline normal equations / regression targets
+    #   2. the fused rollout kernel's emission of obs_ff/actions_ff
+    #      (envs/arm.py:make_rollout_fn passes store_dtype), halving
+    #      the rollout's output writes;
+    #   3. the baseline normal equations / regression targets
     #      (models/baseline.py:normal_eq_ff) read the storage dtype.
-    # Adopted for c3-c5 from a measured decision — see the c3 note in
-    # configs/__init__.py and docs/performance.md "Storage dtype".
+    # c3-c5 adopt bf16 from a convergence A/B (see the c3 note in
+    # configs/__init__.py).
     ff_store_dtype: str = "f32"
 
 
@@ -214,8 +187,8 @@ class ExperimentConfig:
     # stay valid; GAE breaks the trajectory at the done flag). 0 disables
     # — episodes are fixed-horizon with termination only at t = T-1.
     done_dist: float = 0.0
-    # rollout implementation: "auto" picks the fused Pallas kernel on TPU
-    # for planar single-task arms, the XLA scan path otherwise.
+    # rollout implementation: "auto", "pallas" (the fused kernel) or
+    # "xla" (the scan); envs/arm.py:resolve_rollout_impl.
     rollout_impl: str = "auto"
 
     def replace(self, **kw) -> "ExperimentConfig":

@@ -2,7 +2,7 @@
 
 Design (SURVEY.md section 2 L4): `(state, action, params) -> (state, obs,
 reward)` pure functions, `vmap`-ed over envs and `lax.scan`-rolled over the
-horizon — the TPU-native replacement for the reference's C/Python stepped
+horizon — the on-device replacement for the reference's C/Python stepped
 simulator. Distributions (init state, target annulus) mirror the fp64
 oracle (oracle/trpo.py:OracleEnv) exactly; sequences differ (threefry vs
 MT19937), which the parity tests account for by sharing batches.
@@ -135,106 +135,55 @@ def obstacle_penalty(cfg: ExperimentConfig, joint_pos, ee):
     return pen
 
 
-_degrade_warned: set = set()
+def resolve_rollout_impl(cfg: ExperimentConfig, backend: str) -> str:
+    """The rollout implementation for `backend` (a jax backend name):
 
+    - "xla":    generic vmap + lax.scan path (any config, any backend);
+    - "pallas": the fused rollout kernel (ops/pallas/rollout3d_kernel.py)
+      for any arm and task mix, compiled through Triton on the GPU and
+      run in interpret mode on the CPU;
+    - "auto":   the kernel on the GPU, the scan on any other backend.
 
-def _warn_degraded(reason: str) -> None:
-    """One-time warning when a requested fused Pallas rollout silently
-    falls back to the XLA scan path (the fallback is correct, but the
-    perf cliff and the dropped obs_ff/actions_ff keys — which disable
-    the feature-first update path — should be visible to the caller)."""
-    if reason in _degrade_warned:
-        return
-    _degrade_warned.add(reason)
-    import warnings
-    warnings.warn(
-        "fused Pallas rollout degraded to the XLA scan path: " + reason,
-        RuntimeWarning, stacklevel=3)
+    Early termination (done_dist > 0) needs in-kernel episode
+    resampling, which the kernel does not have: "auto" routes such
+    configs to the scan, and an explicit "pallas" is an error.
+    """
+    impl = cfg.rollout_impl
+    if impl not in ("auto", "xla", "pallas"):
+        raise ValueError(f"unknown rollout_impl {impl!r}")
+    if impl == "auto":
+        impl = "pallas" if backend == "gpu" and cfg.done_dist == 0.0 \
+            else "xla"
+    if impl == "pallas" and cfg.done_dist > 0.0:
+        raise ValueError("rollout_impl='pallas' has no early termination; "
+                         "use 'auto' or 'xla' with done_dist > 0")
+    return impl
 
 
 def make_rollout_fn(cfg: ExperimentConfig):
-    """Resolve the rollout implementation (static, at trace-graph build):
-
-    - "pallas": fused Pallas rollout kernel (planar single-task arms, TPU)
-    - "xla":    generic vmap + lax.scan path (any arm, any backend)
-    - "auto":   pallas when eligible on a TPU backend, else xla
-
-    Returns fn(params, key, n_envs=None) -> batch dict.
-    """
-    import jax as _jax
-
+    """Returns fn(params, key, n_envs=None) -> batch dict, with the
+    implementation chosen by resolve_rollout_impl for the default
+    backend (static, at trace-graph build)."""
     from ..models import policy as _policy
 
-    impl = cfg.rollout_impl
-    planar = (ArmConstants(cfg.arm).planar
-              and abs(cfg.arm.gravity) < 1e-12)
-    # planar kernel covers the bare reach task only; the 3D (RNEA) kernel
-    # covers reach/track/push + obstacle for ANY arm, planar included
-    planar_ok = planar and cfg.n_tasks == 1 and cfg.cost.obstacle_weight == 0.0
-    if impl == "auto":
-        # == "tpu", not != "cpu": Mosaic kernels have no GPU lowering
-        on_tpu = _jax.default_backend() == "tpu"
-        if not on_tpu:
-            impl = "xla"
-        else:
-            # the fused kernels implement early termination in-kernel
-            # (PRNG episode resampling), so done_dist > 0 stays fused
-            impl = "pallas" if planar_ok else "pallas3d"
-    if impl in ("pallas", "pallas3d"):
-        from ..ops.pallas.rollout_kernel import auto_block_b
-        if planar_ok and impl == "pallas":
-            from ..ops.pallas.rollout_kernel import pallas_rollout as pr
-        else:
-            from ..ops.pallas.rollout3d_kernel import (auto_tile3d,
-                                                       pallas_rollout3d
-                                                       as pr)
-            impl = "pallas3d"
+    backend = jax.default_backend()
+    if resolve_rollout_impl(cfg, backend) == "xla":
+        return lambda params, key, n_envs=None: rollout(
+            cfg, params, _policy.sample, key, n_envs=n_envs)
 
-        def fn(params, key, n_envs=None):
-            n = cfg.n_envs if n_envs is None else n_envs
-            if impl == "pallas3d":
-                # widest tile + T-chunked output grid: the in-kernel
-                # MLP is latency-bound, lanes ~free up to 1024
-                # (auto_tile3d / scripts/probe_mxu_lanes.py)
-                bb, t_chunk = auto_tile3d(cfg, n)
-            else:
-                bb, t_chunk = auto_block_b(cfg, n), None
-            if n % bb:
-                # no 128-multiple tile divides this env count; take the
-                # XLA scan path rather than fail the kernel's tiling
-                # assertion (any n_envs must work, not just powers of two)
-                _warn_degraded(
-                    f"n_envs={n} is not a multiple of tile {bb}")
-                return rollout(cfg, params, _policy.sample, key, n_envs=n)
-            # explicit "pallas"/"pallas3d" on a CPU backend (tests, fake
-            # meshes) runs the kernel in interpret mode; the on-chip PRNG
-            # has no CPU lowering, so supply host-sampled action noise —
-            # and since in-kernel termination needs the PRNG, terminating
-            # configs take the scan path on CPU
-            interp = _jax.default_backend() == "cpu"
-            eps = None
-            if interp:
-                if cfg.done_dist > 0.0:
-                    _warn_degraded(
-                        "done_dist > 0 needs the on-chip PRNG, which "
-                        "has no CPU/interpret lowering")
-                    return rollout(cfg, params, _policy.sample, key,
-                                   n_envs=n)
-                k_eps, key = _jax.random.split(key)
-                eps = _jax.random.normal(
-                    k_eps, (cfg.horizon, n, cfg.arm.n_joints))
-            # kernel-side bf16 emission of obs_ff/actions_ff feeds the
-            # feature-first update path its HBM-bound operands
-            # pre-rounded and halves the rollout's output writes
-            store = jnp.bfloat16 \
-                if cfg.trpo.ff_store_dtype == "bf16" else None
-            kw = {} if impl != "pallas3d" else {"t_chunk": t_chunk}
-            return pr(cfg, params, key, n_envs=n, block_b=bb,
-                      interpret=interp, eps=eps, store_dtype=store, **kw)
+    from ..ops.pallas.rollout3d_kernel import pallas_rollout3d
 
-        return fn
-    return lambda params, key, n_envs=None: rollout(
-        cfg, params, _policy.sample, key, n_envs=n_envs)
+    # kernel-side bf16 emission of obs_ff/actions_ff feeds the
+    # feature-first update path pre-rounded operands and halves the
+    # rollout's output writes
+    store = jnp.bfloat16 if cfg.trpo.ff_store_dtype == "bf16" else None
+
+    def fn(params, key, n_envs=None):
+        return pallas_rollout3d(cfg, params, key, n_envs=n_envs,
+                                interpret=backend == "cpu",
+                                store_dtype=store)
+
+    return fn
 
 
 def rollout(cfg: ExperimentConfig, params, policy_sample, key, n_envs=None):

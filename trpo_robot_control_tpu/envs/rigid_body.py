@@ -1,7 +1,7 @@
 """Pure-JAX rigid-body dynamics for fixed-base serial arms.
 
 World-frame recursive Newton-Euler (same recursion as oracle/dynamics.py,
-the fp64 fixture), written for XLA/TPU:
+the fp64 fixture), written for XLA:
 
 - link count is STATIC (from the frozen ArmSpec) so the per-link loops are
   plain Python and unroll at trace time — no dynamic control flow;
@@ -28,7 +28,8 @@ from ..configs.base import ArmSpec
 
 def _full_precision(fn):
     """All dynamics contractions are tiny (3x3); force full fp32 precision
-    so TPU results match the fp64 oracle (MXU bf16 passes would not)."""
+    so results match the fp64 oracle (TF32 or bf16 matmul passes would
+    not)."""
     @wraps(fn)
     def wrapper(*args, **kwargs):
         with jax.default_matmul_precision("highest"):

@@ -76,19 +76,18 @@ def normal_eq_ff(obs_ff, targets_tn, horizon: int):
     the (T, F, N) phi never exists: the time features are constant
     across envs (their Gram block is closed-form T-space math), and the
     data-dependent blocks come from ONE Gram of v = [obs, obs^2, y] —
-    a single <=128-wide MXU pass over the batch — plus one (T, 4)
-    cross-contraction. Measured 42 -> ~17 ms at c5 (13.1 M samples).
+    a single pass over the batch — plus one (T, 4) cross-contraction.
     Under shard_map, psum (A, b) before fit_normal: every block is a
     plain sum over local samples (the tau Gram scales by local N).
 
     obs_ff may be bf16 (trpo.ff_store_dtype): the Gram then reads bf16
-    operands (MXU-native; targets join v in the storage dtype to keep
+    operands (targets join v in the storage dtype to keep
     the ONE-pass structure) while A, b, and every contraction
     accumulate fp32, and the time-feature blocks are exact fp32 (their
     conditioning drives fit_normal's eigh floor). The bf16 rounding of
     y adds ~0.2% unbiased per-sample noise to a 13M-sample average —
-    bounded end-to-end by the c4-scale convergence A/B
-    (docs/performance.md).
+    bounded end-to-end by the c4-scale convergence A/B (the c3 note in
+    configs/__init__.py).
     """
     T, do, N = obs_ff.shape
     dt = obs_ff.dtype
@@ -96,11 +95,11 @@ def normal_eq_ff(obs_ff, targets_tn, horizon: int):
     tau = _time_features(T, horizon, f32)                   # (T, 4)
     y_ff = targets_tn[:, None, :].astype(dt)                # (T, 1, N)
     v = jnp.concatenate([obs_ff, obs_ff * obs_ff, y_ff], axis=1)
-    # fp32 mode: HIGHEST forces full-precision MXU passes — at DEFAULT
-    # the TPU rounds fp32 dot operands to bf16 (measured 1.9e-3 rel err
-    # vs fp64 on-chip), which silently degraded the c1/c2 fit and broke
-    # the 1e-5 kernel<->twin check. bf16 mode keeps DEFAULT (a bf16
-    # operand stream is already exact per pass; matches the kernel).
+    # fp32 mode: HIGHEST keeps full fp32 products — at DEFAULT an
+    # accelerator may round fp32 operands (TF32 on the GPU, ~1e-3
+    # relative), which degrades the ill-conditioned fit (fit_normal).
+    # bf16 mode keeps DEFAULT: bf16 operands are already exact in fp32
+    # accumulation.
     prec = (jax.lax.Precision.HIGHEST if dt == f32
             else jax.lax.Precision.DEFAULT)
     G = jnp.einsum("tfn,tgn->fg", v, v, precision=prec,
@@ -128,10 +127,17 @@ def fit(phi_flat, targets_flat, reg: float):
     With data sharding, pass pre-reduced (psum'd) A and b via fit_normal
     instead — see trpo/update.py.
     """
-    A = phi_flat.T @ phi_flat + reg * jnp.eye(phi_flat.shape[-1],
-                                              dtype=phi_flat.dtype)
-    b = phi_flat.T @ targets_flat
-    return fit_normal(A, b)
+    A, b = normal_eq(phi_flat, targets_flat)
+    return fit_normal(A + reg * jnp.eye(A.shape[0], dtype=A.dtype), b)
+
+
+def normal_eq(phi_flat, targets_flat):
+    """Normal-equation moments (phi^T phi, phi^T y) in full fp32:
+    cond(A) reaches ~1e8 (fit_normal), so a TF32 or bf16 matmul pass
+    would spoil the fit."""
+    hi = jax.lax.Precision.HIGHEST
+    return (jnp.matmul(phi_flat.T, phi_flat, precision=hi),
+            jnp.matmul(phi_flat.T, targets_flat, precision=hi))
 
 
 def fit_normal(A, b, eps: float = 1e-20, rel_floor: float = 1e-6):

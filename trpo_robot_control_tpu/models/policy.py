@@ -5,7 +5,10 @@ the fp64 oracle (oracle/net.py), so `jax.flatten_util.ravel_pytree` —
 which flattens dicts in sorted-key order — produces vectors directly
 comparable to the oracle's `net.flatten`.
 
-Mean head in fp32; matmuls sized (B, hidden) ride the MXU when B is large.
+Every policy matmul asks for full fp32 (HIGHEST). At the default
+precision the GPU runs fp32 matmuls as TF32 (~1e-3 relative), which at
+c1's 3,200 samples moved the natural-gradient step size 2.4e-3 off the
+fp64 oracle on an H100, past the 1e-3 parity bound (SURVEY.md 4.8).
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import jax
 import jax.numpy as jnp
 
 LOG2PI = math.log(2.0 * math.pi)
+_HI = jax.lax.Precision.HIGHEST
 
 
 def init_params(key, obs_dim, act_dim, hidden, logstd_init):
@@ -44,8 +48,10 @@ def mean_net(params, obs):
     h = obs
     L = n_layers(params)
     for i in range(L - 1):
-        h = jnp.tanh(h @ params[f"W{i}"] + params[f"b{i}"])
-    return h @ params[f"W{L-1}"] + params[f"b{L-1}"]
+        h = jnp.tanh(jnp.matmul(h, params[f"W{i}"], precision=_HI)
+                     + params[f"b{i}"])
+    return jnp.matmul(h, params[f"W{L-1}"], precision=_HI) \
+        + params[f"b{L-1}"]
 
 
 def dist(params, obs):
@@ -93,14 +99,15 @@ def hidden_ff(params, obs_ff, store_dtype=None):
     """obs_ff (T, do, N) -> all hidden activations [(T, h, N), ...].
 
     store_dtype=bfloat16 halves the HBM footprint of the (T, h, N)
-    intermediates — the surrogate-gradient pass is HBM-bound on exactly
-    these arrays (~56 ms at c5 fp32; see docs/performance.md). The
+    intermediates — the surrogate-gradient pass is memory-bound on
+    exactly these arrays. The
     matmuls themselves stay fp32-accumulating (type promotion against
     the fp32 weights); only the stored tanh outputs round to bf16."""
     hs = []
     h = obs_ff
     for i in range(n_layers(params) - 1):
-        h = jnp.tanh(jnp.einsum("io,tin->ton", params[f"W{i}"], h)
+        h = jnp.tanh(jnp.einsum("io,tin->ton", params[f"W{i}"], h,
+                                precision=_HI)
                      + params[f"b{i}"][None, :, None])
         if store_dtype is not None:
             h = h.astype(store_dtype)
@@ -112,7 +119,8 @@ def dist_ff(params, obs_ff, hs=None):
     """-> (mu_ff (T, da, N), logstd)."""
     L = n_layers(params)
     h = (hs or hidden_ff(params, obs_ff))[-1]
-    mu = jnp.einsum("io,tin->ton", params[f"W{L - 1}"], h) \
+    mu = jnp.einsum("io,tin->ton", params[f"W{L - 1}"], h,
+                    precision=_HI) \
         + params[f"b{L - 1}"][None, :, None]
     return mu, params["logstd"]
 
@@ -166,14 +174,15 @@ def surrogate_grad_ff(params, obs_ff, act_ff, adv_ff, hs=None,
     ct = u
     for l in range(L - 1, 0, -1):
         h_in = hs[l - 1]
-        g[f"W{l}"] = jnp.einsum("tin,ton->io", h_in, ct,
+        g[f"W{l}"] = jnp.einsum("tin,ton->io", h_in, ct, precision=_HI,
                                 preferred_element_type=jnp.float32)
         g[f"b{l}"] = jnp.sum(ct.astype(jnp.float32), axis=(0, 2))
-        ct = jnp.einsum("io,ton->tin", params[f"W{l}"], ct) \
+        ct = jnp.einsum("io,ton->tin", params[f"W{l}"], ct,
+                        precision=_HI) \
             * (1.0 - h_in.astype(jnp.float32) * h_in)
         if store_dtype is not None:
             ct = ct.astype(store_dtype)
-    g["W0"] = jnp.einsum("tin,ton->io", obs_ff, ct,
+    g["W0"] = jnp.einsum("tin,ton->io", obs_ff, ct, precision=_HI,
                          preferred_element_type=jnp.float32)
     g["b0"] = jnp.sum(ct.astype(jnp.float32), axis=(0, 2))
     return g, mu, logp_old

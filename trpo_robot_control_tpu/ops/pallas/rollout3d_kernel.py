@@ -1,24 +1,35 @@
-"""Pallas TPU kernel: fused rollout for GENERAL 3-D serial arms (7-DoF
-Franka-like chains with gravity and obstacle cost — configs c3/c4).
+"""Fused rollout kernel for fixed-base serial arms, through Pallas-Triton.
 
-Extends the planar kernel's design (rollout_kernel.py) to full spatial
-dynamics: the same world-frame RNEA recursion as envs/rigid_body.py (the
-parity fixture), expressed on "vec3-on-lanes" components — every scalar
-channel is a (1, B) array with the env batch on the 128-wide lane
-dimension, rotations are 9 such channels. Fixed transforms are Python
-float constants, so sparse entries (0, +-1 for Franka-style rpy) fold
-away at trace time.
+One program owns a tile of envs and runs the WHOLE horizon: the joint
+state stays in registers across all T steps, and only the per-step
+observation, action and reward rows reach device memory. The plain
+path (envs/arm.py:rollout) is an XLA while loop of T x n_substeps
+iterations, each a chain of kernel launches plus a batched 7x7
+Cholesky, with the carry round-tripping through device memory.
 
-Per step, entirely in VMEM:
-  FK -> observation -> policy MLP (MXU, feature-first) -> Box-Muller
-  sampling (on-chip PRNG) -> all n mass-matrix columns + gravity bias as
-  ONE sublane-stacked RNEA sweep (_mass_bias_fused) -> unrolled
-  rsqrt-Cholesky solve -> semi-implicit Euler (n_substeps) -> reward
-  (+ track/push task terms and smooth obstacle penalty when enabled).
+Layout: every per-env quantity is a 1-D vector over the env tile, so
+the dynamics are elementwise math on vectors of envs. Per step:
+  FK -> observation -> policy MLP (pl.dot on zero-padded weights) ->
+  action = mu + sigma * eps -> per substep: FK, the mass matrix by the
+  composite rigid body algorithm, the bias by one RNEA pass, an
+  unrolled Cholesky solve and a semi-implicit Euler step -> reward
+  (+ track/push task terms and the obstacle penalty when enabled).
 
-Correctness twin: rollout3d_reference (lax.scan over the same math) and,
-transitively, the generic RNEA path + fp64 oracle + MuJoCo
-(tests/test_pallas_rollout3d.py).
+The component math below is shared by the kernel and by its plain
+twin `rollout3d_reference` (lax.scan over the same math). Scalars in it
+are either traced arrays or Python floats; the helpers fold the float
+zeros and ones at trace time, so the constant parts of the fixed joint
+transforms cost nothing.
+
+Action noise `eps` (T, N, n) is drawn by jax.random outside the kernel
+and read per step, so the kernel is bit-comparable with the twin.
+Early termination (cfg.done_dist > 0) would need in-kernel episode
+resampling; envs/arm.py:resolve_rollout_impl routes those configs to the
+XLA scan.
+
+Correctness: kernel == rollout3d_reference in interpret mode, and
+rollout3d_reference == the generic RNEA path (itself checked against
+the fp64 oracle and MuJoCo) — tests/test_pallas_rollout3d.py.
 """
 from __future__ import annotations
 
@@ -29,96 +40,99 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ...configs.base import ExperimentConfig
 from ...envs.rigid_body import ArmConstants
-from .rollout_kernel import (_normals, _policy_ff, _policy_ff_pack2,
-                             _uniform_01, out_vma, pack2_ok,
-                             pack2_weights)
-
-_TWO_PI = 2.0 * np.pi
 
 
-# ------------------------------------------------- vec3 on lanes helpers
+# ------------------------------------------- scalars with folded constants
+def _is0(x):
+    return isinstance(x, float) and x == 0.0
+
+
+def _add(a, b):
+    if _is0(a):
+        return b
+    if _is0(b):
+        return a
+    return a + b
+
+
+def _sub(a, b):
+    if _is0(b):
+        return a
+    if _is0(a):
+        return -b
+    return a - b
+
+
+def _mul(a, b):
+    if _is0(a) or _is0(b):
+        return 0.0
+    for x, y in ((a, b), (b, a)):
+        if isinstance(x, float) and x == 1.0:
+            return y
+        if isinstance(x, float) and x == -1.0:
+            return -y
+    return a * b
+
+
 def v_add(a, b):
-    return (a[0] + b[0], a[1] + b[1], a[2] + b[2])
+    return tuple(_add(x, y) for x, y in zip(a, b))
 
 
 def v_sub(a, b):
-    return (a[0] - b[0], a[1] - b[1], a[2] - b[2])
+    return tuple(_sub(x, y) for x, y in zip(a, b))
 
 
 def v_scale(s, a):
-    return (s * a[0], s * a[1], s * a[2])
+    return tuple(_mul(s, x) for x in a)
 
 
 def v_cross(a, b):
-    return (a[1] * b[2] - a[2] * b[1],
-            a[2] * b[0] - a[0] * b[2],
-            a[0] * b[1] - a[1] * b[0])
+    return (_sub(_mul(a[1], b[2]), _mul(a[2], b[1])),
+            _sub(_mul(a[2], b[0]), _mul(a[0], b[2])),
+            _sub(_mul(a[0], b[1]), _mul(a[1], b[0])))
 
 
 def v_dot(a, b):
-    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
-
-
-def m_vec_const(R, v3):
-    """R: 9-tuple of (1,B); v3: python float 3-tuple (sparse-folded)."""
-    out = []
-    for r in range(3):
-        acc = None
-        for c in range(3):
-            x = float(v3[c])
-            if x == 0.0:
-                continue
-            term = R[3 * r + c] if x == 1.0 else \
-                (-R[3 * r + c] if x == -1.0 else R[3 * r + c] * x)
-            acc = term if acc is None else acc + term
-        out.append(acc if acc is not None else jnp.zeros_like(R[0]))
-    return tuple(out)
+    return _add(_add(_mul(a[0], b[0]), _mul(a[1], b[1])), _mul(a[2], b[2]))
 
 
 def m_vec(R, v):
-    """R: 9-tuple; v: 3-tuple of (1,B)."""
-    return (R[0] * v[0] + R[1] * v[1] + R[2] * v[2],
-            R[3] * v[0] + R[4] * v[1] + R[5] * v[2],
-            R[6] * v[0] + R[7] * v[1] + R[8] * v[2])
+    """R (row-major 9-tuple) @ v (3-tuple)."""
+    return tuple(v_dot(R[3 * r:3 * r + 3], v) for r in range(3))
 
 
-def m_mul_const(R, T):
-    """R (variable 9-tuple) @ T (3x3 python floats, sparse-folded)."""
-    out = []
-    for r in range(3):
-        for c in range(3):
-            acc = None
-            for k in range(3):
-                x = float(T[k][c])
-                if x == 0.0:
-                    continue
-                term = R[3 * r + k] if x == 1.0 else \
-                    (-R[3 * r + k] if x == -1.0 else R[3 * r + k] * x)
-                acc = term if acc is None else acc + term
-            out.append(acc if acc is not None
-                       else jnp.zeros_like(R[0]))
-    return tuple(out)
+def m_mul(R, S):
+    """R @ S for row-major 9-tuples."""
+    return tuple(v_dot(R[3 * r:3 * r + 3], (S[c], S[3 + c], S[6 + c]))
+                 for r in range(3) for c in range(3))
 
 
 def m_rotz(A, cq, sq):
     """A @ Rz(q): columns 0,1 mix by cos/sin; column 2 unchanged."""
-    return (A[0] * cq + A[1] * sq, -A[0] * sq + A[1] * cq, A[2],
-            A[3] * cq + A[4] * sq, -A[3] * sq + A[4] * cq, A[5],
-            A[6] * cq + A[7] * sq, -A[6] * sq + A[7] * cq, A[8])
+    out = []
+    for r in range(3):
+        a0, a1, a2 = A[3 * r:3 * r + 3]
+        out += [_add(_mul(a0, cq), _mul(a1, sq)),
+                _sub(_mul(a1, cq), _mul(a0, sq)), a2]
+    return tuple(out)
+
+
+def _flat(m):
+    return tuple(float(x) for x in np.asarray(m, np.float64).ravel())
 
 
 class Arm3DConsts(NamedTuple):
     n: int
     n_tasks: int
-    T_rot: tuple      # n x (3x3 float tuples)
-    T_pos: tuple      # n x (3 floats)
+    T_rot: tuple      # n x row-major 9-tuples
+    T_pos: tuple      # n x 3-tuples
     mass: tuple
-    com: tuple        # n x (3 floats)
-    inertia: tuple    # n x (3x3 float tuples, link frame)
+    com: tuple        # n x 3-tuples
+    inertia: tuple    # n x row-major 9-tuples (link frame)
     ee_offset: tuple
     gravity: float
     damping: float
@@ -135,18 +149,6 @@ class Arm3DConsts(NamedTuple):
     push_speed: float
     push_weight: float
     chol_reg: float
-    # early termination (cfg.done_dist > 0): episodes end on reaching
-    # the target; the kernel resamples a fresh episode IN-KERNEL from
-    # the on-chip PRNG (same distributions as envs/arm.py:reset)
-    done_dist: float = 0.0
-    q0_noise: float = 0.0
-    qd0_noise: float = 0.0
-    rmin: float = 0.0
-    rmax: float = 0.0
-    # planar arms sample targets in the z=0 plane (envs/arm.py:reset);
-    # without this flag a planar arm routed here with done_dist > 0
-    # would resample unreachable off-plane targets after the first done
-    planar: bool = False
 
 
 def arm3d_consts(cfg: ExperimentConfig, chol_reg: float = 1e-6):
@@ -155,12 +157,12 @@ def arm3d_consts(cfg: ExperimentConfig, chol_reg: float = 1e-6):
     return Arm3DConsts(
         n=c.n,
         n_tasks=int(cfg.n_tasks),
-        T_rot=tuple(tuple(map(tuple, t)) for t in c.T_rot),
-        T_pos=tuple(tuple(t) for t in c.T_pos),
+        T_rot=tuple(_flat(t) for t in c.T_rot),
+        T_pos=tuple(_flat(t) for t in c.T_pos),
         mass=tuple(c.mass),
-        com=tuple(tuple(x) for x in c.com),
-        inertia=tuple(tuple(map(tuple, i)) for i in c.inertia),
-        ee_offset=tuple(c.ee_offset),
+        com=tuple(_flat(x) for x in c.com),
+        inertia=tuple(_flat(i) for i in c.inertia),
+        ee_offset=_flat(c.ee_offset),
         gravity=float(spec.gravity),
         damping=float(spec.joint_damping), dt=float(spec.dt),
         n_substeps=int(spec.n_substeps),
@@ -170,779 +172,435 @@ def arm3d_consts(cfg: ExperimentConfig, chol_reg: float = 1e-6):
         ctrl_weight=float(cfg.cost.ctrl_weight),
         obstacle_weight=float(cfg.cost.obstacle_weight),
         obstacle_radius=float(cfg.cost.obstacle_radius),
-        obstacle_center=tuple(cfg.cost.obstacle_center),
+        obstacle_center=tuple(float(x) for x in cfg.cost.obstacle_center),
         track_omega=float(cfg.cost.track_omega),
         push_speed=float(cfg.cost.push_speed),
         push_weight=float(cfg.cost.push_weight),
         chol_reg=chol_reg,
-        done_dist=float(cfg.done_dist),
-        q0_noise=float(spec.q0_noise),
-        qd0_noise=float(spec.qd0_noise),
-        rmin=float(spec.target_rmin_frac * spec.reach),
-        rmax=float(spec.target_rmax_frac * spec.reach),
-        planar=bool(c.planar),
     )
 
 
-def auto_tile3d(cfg: ExperimentConfig, n_envs: int,
-                vmem_budget_bytes: int = 3 * 1024 * 1024,
-                max_b: int = 512):
-    """(block_b, t_chunk) for the 3-D kernel.
-
-    The in-kernel policy matmul is LATENCY-bound — a dependent
-    (128,128)@(128,L) matmul costs a ~constant ~175 cycles for
-    L = 128..1024 (scripts/probe_mxu_lanes.py) — so wider tiles win:
-    the MLP cost per env drops ~linearly with tile width. What capped
-    the tile at 256 was the full-horizon double-buffered output block;
-    the T-chunked grid (t_chunk) shrinks that block by T/Tc. Measured
-    at c3 (scripts/probe_rollout_tile.py, bf16): bb 256 -> 512 gives
-    7.66 -> 6.27 ms/rollout (+22%), flat in Tc from 8..50; bb=1024
-    REGRESSES to 7.1 ms (the ~(n+1, bb) RNEA live set outgrows
-    VMEM/vreg headroom), hence max_b=512 — a measured decision, not a
-    budget bound. Terminating configs return t_chunk=None and the old
-    full-T budget-shrunk tile (in-kernel resets keep the unchunked
-    kernel).
-    """
-    elt = 2 if cfg.trpo.ff_store_dtype == "bf16" else 4
-    bps = (cfg.obs_dim + cfg.arm.n_joints) * elt \
-        + (8 if cfg.done_dist > 0.0 else 4)        # bytes/env/step
-    T = cfg.horizon
-    if cfg.done_dist > 0.0:
-        from .rollout_kernel import auto_block_b
-        return auto_block_b(cfg, n_envs), None
-    if n_envs < 128:
-        return n_envs, None
-    bb = (min(max_b, n_envs) // 128) * 128
-    while bb > 128 and n_envs % bb:
-        bb -= 128
-    if T * bps * bb <= vmem_budget_bytes:
-        return bb, None
-    # largest divisor of T whose output block fits; prefer multiples of
-    # 8 (the trig-refresh period K) so chunking adds no extra refreshes
-    divisors = sorted((d for d in range(1, T + 1) if T % d == 0),
-                      reverse=True)
-    for mult8 in (True, False):
-        for Tc in divisors:
-            if mult8 and Tc % 8:
-                continue
-            if Tc < T and Tc * bps * bb <= vmem_budget_bytes:
-                return bb, Tc
-    return 128, None
-
-
+# ------------------------------------------------------------ dynamics
 def _fk3(c: Arm3DConsts, cq, sq):
     """FK from per-joint cos/sin lists. Returns (R[i] 9-tuples,
-    p[i] vec3s, axis[i] vec3s, Afix[i] 9-tuples, ee vec3)."""
-    n = c.n
-    zero = jnp.zeros_like(cq[0])
-    one = jnp.ones_like(cq[0])
-    R_par = (one, zero, zero, zero, one, zero, zero, zero, one)
-    p_par = (zero, zero, zero)
+    p[i] joint origins, axis[i] joint axes, ee), all in the world frame."""
+    R_par = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
+    p_par = (0.0, 0.0, 0.0)
     R, p, axis = [], [], []
-    for i in range(n):
-        A = m_mul_const(R_par, c.T_rot[i])
-        p_i = v_add(p_par, m_vec_const(R_par, c.T_pos[i]))
+    for i in range(c.n):
+        A = m_mul(R_par, c.T_rot[i])
+        p_i = v_add(p_par, m_vec(R_par, c.T_pos[i]))
         R_i = m_rotz(A, cq[i], sq[i])
-        axis.append((A[2], A[5], A[8]))       # z column of R_par@T_rot
+        axis.append((A[2], A[5], A[8]))       # z column of R_par @ T_rot
         R.append(R_i)
         p.append(p_i)
         R_par, p_par = R_i, p_i
-    ee = v_add(p[-1], m_vec_const(R[-1], c.ee_offset))
+    ee = v_add(p[-1], m_vec(R[-1], c.ee_offset))
     return R, p, axis, ee
 
 
-def _mass_bias_fused(c: Arm3DConsts, R, p, axis, qd):
-    """ALL n mass-matrix columns + the bias pass as ONE RNEA sweep on
-    (n+1, B) component arrays: the sublane dimension indexes the pass
-    (row j < n: zero-velocity unit-qdd_j column => M[:, j]; row n: real
-    velocity + gravity, qdd = 0 => bias). Identical recursion, ~n+1 x
-    fewer vector instructions than n+1 separate sweeps.
-
-    R/p/axis are (1, B) components and broadcast against (n+1, B).
-    Returns (M dict[(i<=j)] of (1,B), bias list of n (1,B)).
-    """
+def _bias(c: Arm3DConsts, R, p, axis, qd):
+    """Bias torques C(q, qd) qd + g(q): the world-frame RNEA of
+    envs/rigid_body.py:rnea with qdd = 0."""
     n = c.n
-    B_like = qd[0]
-    rows = n + 1
-    zero_r = jnp.zeros((rows,) + B_like.shape[1:], B_like.dtype)
-    zv = (zero_r, zero_r, zero_r)
-
-    row_ids = jax.lax.broadcasted_iota(jnp.int32, (rows, 1), 0)
-
-    def col_const(j):
-        """(rows, 1) selector: 1.0 in row j (built in-kernel: Pallas
-        forbids captured array constants)."""
-        return (row_ids == j).astype(B_like.dtype)
-
-    bias_row = col_const(n)
-    g_vec = (zero_r, zero_r,
-             c.gravity * bias_row + zero_r) if c.gravity else zv
-
-    w_par, wd_par = zv, zv
-    a_par = g_vec
-    p_par = (jnp.zeros_like(B_like),) * 3
+    zero3 = (0.0, 0.0, 0.0)
+    w_par, wd_par, a_par, p_par = zero3, zero3, (0.0, 0.0, c.gravity), zero3
     ws, wds, acs, cws = [], [], [], []
     for i in range(n):
-        qd_i = bias_row * qd[i]              # (rows, B): only bias row
-        qdd_i = col_const(i)                 # (rows, 1): only column i
-        r = v_sub(p[i], p_par)               # (1,B) broadcasts up
+        r = v_sub(p[i], p_par)
         a_i = v_add(a_par, v_add(v_cross(wd_par, r),
                                  v_cross(w_par, v_cross(w_par, r))))
         s = axis[i]
-        w_i = v_add(w_par, v_scale(qd_i, s))
-        wd_i = v_add(v_add(wd_par, v_scale(qdd_i, s)),
-                     v_cross(w_par, v_scale(qd_i, s)))
-        d = m_vec_const(R[i], c.com[i])
+        w_i = v_add(w_par, v_scale(qd[i], s))
+        wd_i = v_add(wd_par, v_cross(w_par, v_scale(qd[i], s)))
+        d = m_vec(R[i], c.com[i])
         ac_i = v_add(a_i, v_add(v_cross(wd_i, d),
                                 v_cross(w_i, v_cross(w_i, d))))
-        ws.append(w_i); wds.append(wd_i); acs.append(ac_i)
+        ws.append(w_i)
+        wds.append(wd_i)
+        acs.append(ac_i)
         cws.append(v_add(p[i], d))
         w_par, wd_par, a_par, p_par = w_i, wd_i, a_i, p[i]
 
     taus = [None] * n
-    f_child, n_child = zv, zv
-    p_child = (jnp.zeros_like(B_like),) * 3
+    f_child, n_child, p_child = zero3, zero3, zero3
     for i in range(n - 1, -1, -1):
-        def I_w_vec(v, Ri=R[i], Ic=c.inertia[i]):
-            tv = m_vec((Ri[0], Ri[3], Ri[6],
-                        Ri[1], Ri[4], Ri[7],
-                        Ri[2], Ri[5], Ri[8]), v)
-            iv = (tv[0] * float(Ic[0][0]) + tv[1] * float(Ic[0][1])
-                  + tv[2] * float(Ic[0][2]),
-                  tv[0] * float(Ic[1][0]) + tv[1] * float(Ic[1][1])
-                  + tv[2] * float(Ic[1][2]),
-                  tv[0] * float(Ic[2][0]) + tv[1] * float(Ic[2][1])
-                  + tv[2] * float(Ic[2][2]))
-            return m_vec(R[i], iv)
+        Ri = R[i]
+        Rt = (Ri[0], Ri[3], Ri[6], Ri[1], Ri[4], Ri[7], Ri[2], Ri[5], Ri[8])
+
+        def I_w_vec(v, Ri=Ri, Rt=Rt, Ic=c.inertia[i]):
+            return m_vec(Ri, m_vec(Ic, m_vec(Rt, v)))
+
         F = v_scale(c.mass[i], acs[i])
         N = v_add(I_w_vec(wds[i]), v_cross(ws[i], I_w_vec(ws[i])))
         f = v_add(F, f_child)
         nn = v_add(v_add(N, n_child),
                    v_add(v_cross(v_sub(cws[i], p[i]), F),
                          v_cross(v_sub(p_child, p[i]), f_child)))
-        taus[i] = v_dot(axis[i], nn)          # (rows, B)
+        taus[i] = v_dot(axis[i], nn)
         f_child, n_child, p_child = f, nn, p[i]
+    return taus
 
+
+def _sym_vec(I, v):
+    """Symmetric 3x3 (xx, xy, xz, yy, yz, zz) @ v."""
+    xx, xy, xz, yy, yz, zz = I
+    return (_add(_add(_mul(xx, v[0]), _mul(xy, v[1])), _mul(xz, v[2])),
+            _add(_add(_mul(xy, v[0]), _mul(yy, v[1])), _mul(yz, v[2])),
+            _add(_add(_mul(xz, v[0]), _mul(yz, v[1])), _mul(zz, v[2])))
+
+
+def _mass_matrix(c: Arm3DConsts, R, p, axis):
+    """Joint-space mass matrix M (dict (i, j), i <= j) by the composite
+    rigid body algorithm in world coordinates: M_ij = xi_i . (I_j xi_j),
+    with xi_j = (s_j, p_j x s_j) joint j's unit twist and I_j the
+    spatial inertia of links j..n-1 about the world origin (mass m,
+    first moment h, rotational inertia J). Equal to the n unit-
+    acceleration RNEA columns of envs/rigid_body.py:mass_matrix."""
+    n = c.n
+    v0 = [v_cross(p[j], axis[j]) for j in range(n)]
+    m, h = 0.0, (0.0, 0.0, 0.0)
+    J = (0.0,) * 6
     M = {}
-    bias = [None] * n
-    for i in range(n):
-        for j in range(i, n):
-            M[(i, j)] = taus[i][j:j + 1]
-        bias[i] = taus[i][n:n + 1]
-    return M, bias
+    for j in range(n - 1, -1, -1):
+        mj = c.mass[j]
+        cj = v_add(p[j], m_vec(R[j], c.com[j]))        # world COM
+        A, Rj = m_mul(R[j], c.inertia[j]), R[j]         # R Ic R^T rows
+        Iw = [v_dot(A[3 * a:3 * a + 3], Rj[3 * b:3 * b + 3])
+              for a, b in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))]
+        x, y, z = cj
+        xx, yy, zz = _mul(x, x), _mul(y, y), _mul(z, z)
+        par = (_add(yy, zz), -_mul(x, y), -_mul(x, z), _add(xx, zz),
+               -_mul(y, z), _add(xx, yy))              # |c|^2 I - c c^T
+        J = tuple(_add(Jk, _add(Ik, _mul(mj, pk)))
+                  for Jk, Ik, pk in zip(J, Iw, par))
+        m = m + mj
+        h = v_add(h, v_scale(mj, cj))
+        s = axis[j]
+        f = v_add(v_scale(m, v0[j]), v_cross(s, h))      # linear part
+        nO = v_add(_sym_vec(J, s), v_cross(h, v0[j]))   # moment about 0
+        for i in range(j + 1):
+            M[(i, j)] = _add(v_dot(axis[i], nO), v_dot(v0[i], f))
+    return M
 
 
 def _chol_solve3(c: Arm3DConsts, M, rhs):
-    """Unrolled Cholesky; divisions/sqrts replaced by ONE rsqrt per pivot
-    + reciprocal multiplies (VPU div/sqrt are many-cycle; this was the
-    single biggest cost in the fused rollout by ablation)."""
+    """(M + chol_reg I) x = rhs by an unrolled Cholesky: one rsqrt per
+    pivot and reciprocal multiplies."""
     n = c.n
     L = {}
     inv_d = [None] * n
     for j in range(n):
-        s = M[(j, j)] + c.chol_reg
+        s = _add(M[(j, j)], c.chol_reg)
         for k in range(j):
-            s = s - L[(j, k)] * L[(j, k)]
+            s = _sub(s, _mul(L[(j, k)], L[(j, k)]))
         inv = jax.lax.rsqrt(s)
         inv_d[j] = inv
         L[(j, j)] = s * inv                    # = sqrt(s)
         for i in range(j + 1, n):
-            t = M[(j, i)] if (j, i) in M else M[(i, j)]
+            t = M[(j, i)]
             for k in range(j):
-                t = t - L[(i, k)] * L[(j, k)]
-            L[(i, j)] = t * inv
+                t = _sub(t, _mul(L[(i, k)], L[(j, k)]))
+            L[(i, j)] = _mul(t, inv)
     y = [None] * n
     for i in range(n):
         s = rhs[i]
         for k in range(i):
-            s = s - L[(i, k)] * y[k]
+            s = _sub(s, _mul(L[(i, k)], y[k]))
         y[i] = s * inv_d[i]
     x = [None] * n
     for i in range(n - 1, -1, -1):
         s = y[i]
         for k in range(i + 1, n):
-            s = s - L[(k, i)] * x[k]
+            s = _sub(s, _mul(L[(k, i)], x[k]))
         x[i] = s * inv_d[i]
     return x
 
 
-def _rot_increment(cq, sq, dq):
-    """Advance (cos q, sin q) by a small integration step dq via
-    5th/4th-order polynomials + one first-order renormalisation.
-    |dq| <= qd_limit * dt / n_substeps (~0.2 rad) keeps truncation
-    ~1e-7, at fp32 rounding level; the kernel refreshes exact cos/sin
-    every few steps (outer loop), bounding composition drift at ~1e-6
-    rad. Replaces 2 transcendentals per joint per substep with ~19 fma:
-    scripts/probe_vpu.py measured in-kernel sin at ~64 ns/op vs fma at
-    2.6 ns on (1, B) blocks — the 3 FK trig evaluations per step were
-    ~35% of the whole fused rollout."""
-    dq2 = dq * dq
-    sd = dq * (1.0 - dq2 * (1.0 / 6.0 - dq2 * (1.0 / 120.0)))
-    cd = 1.0 - dq2 * (0.5 - dq2 * (1.0 / 24.0))
-    c2 = cq * cd - sq * sd
-    s2 = sq * cd + cq * sd
-    r = 1.5 - 0.5 * (c2 * c2 + s2 * s2)
-    return c2 * r, s2 * r
-
-
-def _score_step(c: Arm3DConsts, qd, tgt, tau_l, cq2, sq2, task_oh):
-    """Post-step scoring shared by _step3 and _step3_fast: track-target
-    rotation, post-step FK, reach cost, push/obstacle terms (mirrors
-    envs/arm.py:step). Returns (tgt2, rew, dist2, fk2); fk2 is the
-    post-step FK products, which the fast path carries into the next
-    step as its pre-step FK."""
+def _score_step(c: Arm3DConsts, qd, tgt, tau, cq2, sq2, task_oh):
+    """Track-target rotation, post-step FK, reach cost, push and obstacle
+    terms (mirrors envs/arm.py:step). Returns (tgt2, rew)."""
     n = c.n
     if task_oh is not None:
         co = float(np.cos(c.track_omega * c.dt))
         so = float(np.sin(c.track_omega * c.dt))
-        mask1 = task_oh[1]
-        tx = jnp.where(mask1 > 0.5, co * tgt[0] - so * tgt[1], tgt[0])
-        ty = jnp.where(mask1 > 0.5, so * tgt[0] + co * tgt[1], tgt[1])
-        tgt = (tx, ty, tgt[2])
+        track = task_oh[1] > 0.5
+        tgt = (jnp.where(track, co * tgt[0] - so * tgt[1], tgt[0]),
+               jnp.where(track, so * tgt[0] + co * tgt[1], tgt[1]),
+               tgt[2])
 
     R2, p2, axis2, ee2 = _fk3(c, cq2, sq2)
     d = v_sub(ee2, tgt)
-    ctrl = None
-    for i in range(n):
-        t2 = tau_l[i] * tau_l[i]
-        ctrl = t2 if ctrl is None else ctrl + t2
+    ctrl = tau[0] * tau[0]
+    for i in range(1, n):
+        ctrl = ctrl + tau[i] * tau[i]
     rew = -(v_dot(d, d) + c.ctrl_weight * ctrl)
 
     if task_oh is not None and c.n_tasks > 2:
         # push task (family 2): EE velocity should match
         # push_speed * dir(to target); v_ee = sum qd_i axis_i x (ee - p_i)
-        v_ee = (jnp.zeros_like(ee2[0]),) * 3
+        v_ee = (0.0, 0.0, 0.0)
         for i in range(n):
             v_ee = v_add(v_ee, v_scale(
                 qd[i], v_cross(axis2[i], v_sub(ee2, p2[i]))))
         dn = jnp.sqrt(v_dot(d, d)) + 1e-6
-        dirn = (-d[0] / dn, -d[1] / dn, -d[2] / dn)
-        verr = v_sub(v_ee, v_scale(c.push_speed * jnp.ones_like(dn), dirn))
+        verr = tuple(_add(v, c.push_speed * dk / dn)
+                     for v, dk in zip(v_ee, d))
         rew = rew - jnp.where(task_oh[2] > 0.5,
                               c.push_weight * v_dot(verr, verr), 0.0)
 
     if c.obstacle_weight > 0.0:
-        oc = c.obstacle_center
         pen = None
         for pt in p2[1:] + [ee2]:
-            dx = pt[0] - oc[0]
-            dy = pt[1] - oc[1]
-            dz = pt[2] - oc[2]
-            dist = jnp.sqrt(dx * dx + dy * dy + dz * dz)
+            dx, dy, dz = v_sub(pt, c.obstacle_center)
+            dist = jnp.sqrt(_add(_add(_mul(dx, dx), _mul(dy, dy)),
+                                 _mul(dz, dz)))
             term = jnp.maximum(c.obstacle_radius - dist, 0.0) ** 2
             pen = term if pen is None else pen + term
         rew = rew - c.obstacle_weight * pen
-    return tgt, rew, v_dot(d, d), (R2, p2, axis2, ee2)
-
-
-def _step3_fast(c: Arm3DConsts, mlp, sigma, q, qd, tgt, eps,
-                cq, sq, fk, task_oh=None):
-    """One 3-D env step with CARRIED trig + FK (non-terminating fast
-    path). Two structural savings over _step3, same math otherwise
-    (kernel == jnp twin tested at 1e-5):
-
-    1. The post-step FK that scores step t IS step t+1's pre-step FK —
-       computed once in _score_step and carried (FK chains per step:
-       n_substeps, was n_substeps + 1).
-    2. cos/sin advance by _rot_increment at each integration instead of
-       fresh transcendentals; the caller refreshes exact values every
-       few steps (trig per step: 0, was 14 x ~64 ns).
-    """
-    n = c.n
-    R, p, axis, ee = fk
-    q, cq, sq = list(q), list(cq), list(sq)
-    obs_rows = (cq + sq + [c.qd_obs_scale * x for x in qd]
-                + [tgt[0] - ee[0], tgt[1] - ee[1], tgt[2] - ee[2]])
-    if task_oh is not None:
-        obs_rows = obs_rows + list(task_oh)
-    obs = jnp.concatenate(obs_rows, axis=0)
-    mu = mlp(obs)
-    act = mu + sigma * eps
-    tau = jnp.clip(act, -c.torque_limit, c.torque_limit)
-    tau_l = [tau[i:i + 1] for i in range(n)]
-
-    h = c.dt / c.n_substeps
-    for s in range(c.n_substeps):
-        if s > 0:
-            R, p, axis, ee = _fk3(c, cq, sq)
-        M, bias = _mass_bias_fused(c, R, p, axis, qd)
-        rhs = [tau_l[i] - bias[i] - c.damping * qd[i] for i in range(n)]
-        qdd = _chol_solve3(c, M, rhs)
-        qd = [jnp.clip(qd[i] + h * qdd[i], -c.qd_limit, c.qd_limit)
-              for i in range(n)]
-        for i in range(n):
-            dq = h * qd[i]
-            q[i] = q[i] + dq
-            cq[i], sq[i] = _rot_increment(cq[i], sq[i], dq)
-
-    tgt2, rew, _, fk2 = _score_step(c, qd, tgt, tau_l, cq, sq, task_oh)
-    return q, qd, tgt2, cq, sq, fk2, obs, act, rew
+    return tgt, rew
 
 
 def _step3(c: Arm3DConsts, mlp, sigma, q, qd, tgt, eps, task_oh=None):
-    """One 3-D env step on (1,B) components. q/qd lists of n; tgt vec3;
-    task_oh: tuple of n_tasks (1,B) masks (multi-task) or None.
-    Returns (q2, qd2, tgt2, obs (do,B), act (n,B), rew (1,B)).
+    """One env step on per-env vectors. q, qd, eps, sigma: lists of n;
+    tgt: 3-tuple; task_oh: n_tasks one-hot rows or None; mlp maps the
+    list of obs rows to the list of n mean rows. Returns (q2, qd2, tgt2,
+    obs rows, act rows, rew).
 
-    Mirrors envs/arm.py:step exactly: clip -> dynamics -> (track target
-    rotation) -> score at the post-step state (+ push velocity penalty
-    for family 2, obstacle penalty when enabled).
-    """
+    Mirrors envs/arm.py:step: clip -> dynamics -> (track target
+    rotation) -> score at the post-step state."""
     n = c.n
     cq = [jnp.cos(x) for x in q]
     sq = [jnp.sin(x) for x in q]
     R, p, axis, ee = _fk3(c, cq, sq)
 
-    obs_rows = (cq + sq + [c.qd_obs_scale * x for x in qd]
-                + [tgt[0] - ee[0], tgt[1] - ee[1], tgt[2] - ee[2]])
+    obs = (cq + sq + [c.qd_obs_scale * x for x in qd]
+           + [_sub(tgt[k], ee[k]) for k in range(3)])
     if task_oh is not None:
-        obs_rows = obs_rows + list(task_oh)
-    obs = jnp.concatenate(obs_rows, axis=0)
+        obs = obs + list(task_oh)
     mu = mlp(obs)
-    act = mu + sigma * eps
-    tau = jnp.clip(act, -c.torque_limit, c.torque_limit)
-    tau_l = [tau[i:i + 1] for i in range(n)]
+    act = [mu[i] + sigma[i] * eps[i] for i in range(n)]
+    tau = [jnp.clip(a, -c.torque_limit, c.torque_limit) for a in act]
 
-    one = jnp.ones_like(q[0])
     h = c.dt / c.n_substeps
-    for s in range(c.n_substeps):
-        if s > 0:
-            cq = [jnp.cos(x) for x in q]
-            sq = [jnp.sin(x) for x in q]
-            R, p, axis, ee = _fk3(c, cq, sq)
-        M, bias = _mass_bias_fused(c, R, p, axis, qd)
-        rhs = [tau_l[i] - bias[i] - c.damping * qd[i] for i in range(n)]
+
+    def substep(q, qd):
+        R, p, axis, _ = _fk3(c, [jnp.cos(x) for x in q],
+                             [jnp.sin(x) for x in q])
+        M = _mass_matrix(c, R, p, axis)
+        bias = _bias(c, R, p, axis, qd)
+        rhs = [_sub(tau[i], _add(bias[i], c.damping * qd[i]))
+               for i in range(n)]
         qdd = _chol_solve3(c, M, rhs)
         qd = [jnp.clip(qd[i] + h * qdd[i], -c.qd_limit, c.qd_limit)
               for i in range(n)]
-        q = [q[i] + h * qd[i] for i in range(n)]
+        return [q[i] + h * qd[i] for i in range(n)], qd
+
+    # a loop rather than an unrolled sequence: it keeps the kernel body,
+    # and with it the Triton compile time, to one substep's code
+    q, qd = jax.lax.fori_loop(0, c.n_substeps,
+                              lambda _, st: substep(*st), (q, qd))
 
     cq2 = [jnp.cos(x) for x in q]
     sq2 = [jnp.sin(x) for x in q]
-    tgt, rew, dist2, _ = _score_step(c, qd, tgt, tau_l, cq2, sq2, task_oh)
-    return q, qd, tgt, obs, act, rew, dist2
+    tgt, rew = _score_step(c, qd, tgt, tau, cq2, sq2, task_oh)
+    return q, qd, tgt, obs, act, rew
 
 
-def _rollout3d_kernel(c: Arm3DConsts, T, n_layers, use_prng,
-                      terminating, pack2, *refs):
+# ----------------------------------------------------------------- MLP
+def _pow2(x: int, floor: int = 16) -> int:
+    """Smallest power of two >= max(x, floor) (pl.dot's shape rule)."""
+    return max(floor, 1 << (int(x) - 1).bit_length())
+
+
+def _padded_mlp(params):
+    """Policy weights zero-padded to power-of-two widths >= 16. Padded
+    hidden units see zero weights and bias, so tanh(0) = 0 feeds zero
+    rows of the next layer: the padded MLP is exact."""
+    L = sum(1 for k in params if k.startswith("W"))
+    Ws, bs = [], []
+    for i in range(L):
+        W, b = params[f"W{i}"], params[f"b{i}"]
+        din, dout = W.shape
+        Ws.append(jnp.pad(W, ((0, _pow2(din) - din),
+                              (0, _pow2(dout) - dout))))
+        bs.append(jnp.pad(b, (0, _pow2(dout) - dout)))
+    return Ws, bs
+
+
+def _mlp_rows(Ws, bs, rows, n_out, precision):
+    """In-kernel policy mean: scatter the obs rows into a (bb, do_pad)
+    tile by one-hot selects, run the padded tanh MLP with pl.dot, and
+    read the n_out mean rows back by masked row sums (Triton cannot
+    concatenate vectors or slice columns out of a register tile)."""
+    bb = rows[0].shape[0]
+    col = jax.lax.broadcasted_iota(jnp.int32, (bb, Ws[0].shape[0]), 1)
+    x = jnp.zeros((bb, Ws[0].shape[0]), jnp.float32)
+    for i, r in enumerate(rows):
+        x = jnp.where(col == i, r[:, None], x)
+    for W, b in zip(Ws[:-1], bs[:-1]):
+        x = jnp.tanh(pl.dot(x, W, precision=precision) + b[None, :])
+    y = pl.dot(x, Ws[-1], precision=precision) + bs[-1][None, :]
+    col = jax.lax.broadcasted_iota(jnp.int32, y.shape, 1)
+    return [jnp.sum(jnp.where(col == i, y, 0.0), axis=1)
+            for i in range(n_out)]
+
+
+def _policy_ff(Ws, bs, obs):
+    """Feature-first tanh MLP: obs (do, B) -> mu (da, B); Ws[i] (d_in,
+    d_out) as stored in the param dict, bs[i] (d_out, 1)."""
+    h = obs
+    for i in range(len(Ws) - 1):
+        h = jnp.tanh(jax.lax.dot_general(Ws[i], h, (((0,), (0,)), ((), ())),
+                                         preferred_element_type=jnp.float32)
+                     + bs[i])
+    return jax.lax.dot_general(Ws[-1], h, (((0,), (0,)), ((), ())),
+                               preferred_element_type=jnp.float32) + bs[-1]
+
+
+# -------------------------------------------------------------- kernel
+def rollout_tile(n_envs: int):
+    """(envs per program, warps per program). One env per thread in a
+    one-warp program: the step is long dependent elementwise math, so
+    the work parallelises over envs, and small programs let many
+    co-reside on an SM while filling all of them from a few thousand
+    envs up. Below 32 envs the tile is the smallest power of two
+    >= 16 (pl.dot's minimum row count) that covers them."""
+    return min(32, _pow2(n_envs)), 1
+
+
+def _rollout_kernel(c: Arm3DConsts, T, bb, n_layers, precision, *refs):
+    """refs: q0 (n, Np), qd0 (n, Np), tgt (3, Np), [task one-hot
+    (n_tasks, Np)], padded W0..W_{L-1}, b0..b_{L-1}, logstd (n,),
+    eps (T, n, Np) -> obs (T, do, Np), act (T, n, Np), rew (T, Np)."""
     it = iter(refs)
-    q0_ref = next(it)
-    qd0_ref = next(it)
-    tgt_ref = next(it)
+    q0_ref, qd0_ref, tgt_ref = next(it), next(it), next(it)
     task_ref = next(it) if c.n_tasks > 1 else None
-    Ws = [next(it) for _ in range(n_layers)]
-    bs = [next(it) for _ in range(n_layers)]
-    logstd_ref = next(it)
-    if use_prng:
-        seed_ref = next(it)
-    else:
-        eps_ref = next(it)
-    obs_out = next(it)
-    act_out = next(it)
-    rew_out = next(it)
-    done_out = next(it) if terminating else None
+    W_refs = [next(it) for _ in range(n_layers)]
+    b_refs = [next(it) for _ in range(n_layers)]
+    logstd_ref, eps_ref = next(it), next(it)
+    obs_ref, act_ref, rew_ref = next(it), next(it), next(it)
 
     n = c.n
-    if use_prng:
-        pltpu.prng_seed(seed_ref[0, 0] + pl.program_id(0))
-    sigma = jnp.exp(logstd_ref[:])
-
-    q = [q0_ref[i:i + 1, :] for i in range(n)]
-    qd = [qd0_ref[i:i + 1, :] for i in range(n)]
-    tgt = (tgt_ref[0:1, :], tgt_ref[1:2, :], tgt_ref[2:3, :])
+    env = pl.ds(pl.program_id(0) * bb, bb)
+    Ws = [w[...] for w in W_refs]
+    bs = [b[...] for b in b_refs]
+    sigma = [jnp.exp(logstd_ref[i]) for i in range(n)]
+    q = [q0_ref[i, env] for i in range(n)]
+    qd = [qd0_ref[i, env] for i in range(n)]
+    tgt = tuple(tgt_ref[k, env] for k in range(3))
     task_oh = None if task_ref is None else tuple(
-        task_ref[i:i + 1, :] for i in range(c.n_tasks))
-    W_blocks = [w[:] for w in Ws]
-    b_blocks = [b[:] for b in bs]
-    if pack2:
-        mlp = lambda o: _policy_ff_pack2(W_blocks, b_blocks, o, n)
-    else:
-        mlp = lambda o: _policy_ff(W_blocks, b_blocks, o)
+        task_ref[k, env] for k in range(c.n_tasks))
+
+    def mlp(rows):
+        return _mlp_rows(Ws, bs, rows, n, precision)
 
     def body(t, carry):
-        if terminating and task_oh is not None:
-            q, qd, tgt, toh = carry
-        else:
-            q, qd, tgt = carry
-            toh = task_oh
-        if use_prng:
-            eps = _normals(n, q[0].shape[-1])
-        else:
-            eps = eps_ref[t]
-        q2, qd2, tgt2, obs, act, rew, dist2 = _step3(
-            c, mlp, sigma, q, qd, tgt, eps, toh)
-        obs_out[t] = obs.astype(obs_out.dtype)
-        act_out[t] = act.astype(act_out.dtype)
-        rew_out[t] = rew
-        if terminating:
-            # episode ends on reaching the (post-step, possibly
-            # track-rotated) target; resample a FRESH episode in-kernel
-            # (same distributions as envs/arm.py:reset)
-            done = (dist2 < c.done_dist * c.done_dist)   # (1, B) bool
-            done_out[t] = done.astype(jnp.float32)
-            row = (1, q2[0].shape[-1])
-            for i in range(n):
-                qf = c.q0_noise * (2.0 * _uniform_01(row) - 1.0)
-                qdf = c.qd0_noise * (2.0 * _uniform_01(row) - 1.0)
-                q2[i] = jnp.where(done, qf, q2[i])
-                qd2[i] = jnp.where(done, qdf, qd2[i])
-            r = c.rmin + (c.rmax - c.rmin) * _uniform_01(row)
-            if c.planar:
-                # planar arms: target in the z=0 plane, angle uniform
-                # (matches envs/arm.py:reset planar branch)
-                th = _TWO_PI * _uniform_01(row)
-                tx, ty, tz = r * jnp.cos(th), r * jnp.sin(th), \
-                    jnp.zeros_like(r)
-            else:
-                # fresh target: r * dir, dir ~ normalized 3-normal,
-                # z = |z| (upper hemisphere)
-                g1 = jnp.sqrt(-2.0 * jnp.log(_uniform_01(row))) \
-                    * jnp.cos(_TWO_PI * _uniform_01(row))
-                bm = jnp.sqrt(-2.0 * jnp.log(_uniform_01(row)))
-                ang = _TWO_PI * _uniform_01(row)
-                g2 = bm * jnp.cos(ang)
-                g3 = bm * jnp.sin(ang)
-                nrm = jnp.sqrt(g1 * g1 + g2 * g2 + g3 * g3) + 1e-12
-                tx, ty, tz = r * g1 / nrm, r * g2 / nrm, \
-                    r * jnp.abs(g3) / nrm
-            tgt2 = (jnp.where(done, tx, tgt2[0]),
-                    jnp.where(done, ty, tgt2[1]),
-                    jnp.where(done, tz, tgt2[2]))
-            if toh is not None:
-                # fresh task family ~ uniform {0..n_tasks-1}
-                u = _uniform_01(row) * c.n_tasks
-                toh = tuple(
-                    jnp.where(done,
-                              jnp.logical_and(u >= k, u < k + 1)
-                              .astype(jnp.float32), toh[k])
-                    for k in range(c.n_tasks))
-                return (q2, qd2, tgt2, toh)
-        return (q2, qd2, tgt2)
+        q, qd, tgt = carry
+        eps = [eps_ref[t, i, env] for i in range(n)]
+        q, qd, tgt, obs, act, rew = _step3(c, mlp, sigma, q, qd, tgt, eps,
+                                           task_oh)
+        for i, o in enumerate(obs):
+            obs_ref[t, i, env] = o.astype(obs_ref.dtype)
+        for i, a in enumerate(act):
+            act_ref[t, i, env] = a.astype(act_ref.dtype)
+        rew_ref[t, env] = rew
+        return q, qd, tgt
 
-    if terminating:
-        # in-kernel resets re-randomise q, so carried trig/FK would be
-        # stale for reset lanes: the terminating path keeps the
-        # per-step exact-FK body (shipped c3-c5 are non-terminating)
-        if task_oh is not None:
-            jax.lax.fori_loop(0, T, body, (q, qd, tgt, task_oh))
-        else:
-            jax.lax.fori_loop(0, T, body, (q, qd, tgt))
-        return
-
-    # Fast path: nested loop. The outer level refreshes exact cos/sin +
-    # FK every K steps (bounds _rot_increment composition drift at
-    # ~1e-6 rad); the inner K steps carry trig + post-step FK across
-    # the step boundary (_step3_fast) — measured ~30% of the whole
-    # kernel at c3-c5 (FK trig + the third FK chain per step).
-    K = next(k for k in (8, 5, 4, 3, 2, 1) if T % k == 0)
-
-    def inner(j, st, t0):
-        q, qd, tgt, cq, sq, fk = st
-        t = t0 + j
-        if use_prng:
-            eps = _normals(n, q[0].shape[-1])
-        else:
-            eps = eps_ref[t]
-        q, qd, tgt, cq, sq, fk, obs, act, rew = _step3_fast(
-            c, mlp, sigma, q, qd, tgt, eps, cq, sq,
-            fk, task_oh)
-        obs_out[t] = obs.astype(obs_out.dtype)
-        act_out[t] = act.astype(act_out.dtype)
-        rew_out[t] = rew
-        return (q, qd, tgt, cq, sq, fk)
-
-    def outer(o, st):
-        q, qd, tgt = st
-        cq = [jnp.cos(x) for x in q]
-        sq = [jnp.sin(x) for x in q]
-        fk = _fk3(c, cq, sq)
-        t0 = o * K
-        st2 = jax.lax.fori_loop(0, K, lambda j, s: inner(j, s, t0),
-                                (q, qd, tgt, cq, sq, fk))
-        return st2[:3]
-
-    jax.lax.fori_loop(0, T // K, outer, (q, qd, tgt))
+    jax.lax.fori_loop(0, T, body, (q, qd, tgt))
 
 
-def _rollout3d_kernel_chunked(c: Arm3DConsts, Tc, n_chunks, n_layers,
-                              use_prng, pack2, *refs):
-    """T-CHUNKED twin of _rollout3d_kernel's fast path (round 4).
+def pallas_rollout3d(cfg: ExperimentConfig, params, key, n_envs=None,
+                     eps=None, interpret: bool = False, q0=None, qd0=None,
+                     tgt=None, task=None, store_dtype=None, precision=None):
+    """Fused rollout; same contract as envs/arm.py:rollout for
+    non-terminating configs, plus the kernel-native feature-first views
+    obs_ff (T, do, N), actions_ff (T, n, N) and rewards_ff (T, N).
 
-    Grid = (env_tiles, n_chunks), chunk dim innermost — TPU grid steps
-    run sequentially, so the joint state persists across chunks in a
-    VMEM scratch block and only a (Tc, d, bb) output block is
-    double-buffered per step. Why: the in-kernel policy matmul is
-    LATENCY-bound, not stream-bound — a dependent (128,128)@(128,L)
-    matmul costs a ~constant ~175 cycles for L = 128..1024
-    (scripts/probe_mxu_lanes.py) — so lanes are nearly free up to 1024
-    and the MLP cost per env drops ~linearly with tile width. Full-T
-    output blocks capped the tile at 256 envs (VMEM double-buffering);
-    chunking T lifts that to 1024.
-
-    Non-terminating only (in-kernel resets would need the carried-trig
-    guard anyway; terminating configs keep the unchunked kernel).
-    refs: [q0, qd0, tgt, (task), Ws, bs, logstd, seed|eps,
-           obs_out, act_out, rew_out, state_scratch].
-    """
-    it = iter(refs)
-    q0_ref = next(it)
-    qd0_ref = next(it)
-    tgt_ref = next(it)
-    task_ref = next(it) if c.n_tasks > 1 else None
-    Ws = [next(it) for _ in range(n_layers)]
-    bs = [next(it) for _ in range(n_layers)]
-    logstd_ref = next(it)
-    if use_prng:
-        seed_ref = next(it)
-    else:
-        eps_ref = next(it)
-    obs_out = next(it)
-    act_out = next(it)
-    rew_out = next(it)
-    state_ref = next(it)                    # (2n+3, bb) fp32 scratch
-
-    n = c.n
-    j = pl.program_id(1)
-    if use_prng:
-        # deterministic stream per (env tile, chunk); the chunked and
-        # unchunked kernels draw DIFFERENT streams (same distributions)
-        # — eps mode is the bit-exact equivalence path
-        pltpu.prng_seed(seed_ref[0, 0]
-                        + pl.program_id(0) * n_chunks + j)
-    sigma = jnp.exp(logstd_ref[:])
-
-    @pl.when(j == 0)
-    def _init():
-        state_ref[0:n] = q0_ref[:]
-        state_ref[n:2 * n] = qd0_ref[:]
-        state_ref[2 * n:2 * n + 3] = tgt_ref[:]
-
-    q = [state_ref[i:i + 1, :] for i in range(n)]
-    qd = [state_ref[n + i:n + i + 1, :] for i in range(n)]
-    tgt = (state_ref[2 * n:2 * n + 1, :],
-           state_ref[2 * n + 1:2 * n + 2, :],
-           state_ref[2 * n + 2:2 * n + 3, :])
-    task_oh = None if task_ref is None else tuple(
-        task_ref[i:i + 1, :] for i in range(c.n_tasks))
-    W_blocks = [w[:] for w in Ws]
-    b_blocks = [b[:] for b in bs]
-    if pack2:
-        mlp = lambda o: _policy_ff_pack2(W_blocks, b_blocks, o, n)
-    else:
-        mlp = lambda o: _policy_ff(W_blocks, b_blocks, o)
-
-    K = next(k for k in (8, 5, 4, 3, 2, 1) if Tc % k == 0)
-
-    def inner(jj, st, t0):
-        q, qd, tgt, cq, sq, fk = st
-        t = t0 + jj                          # block-local step index
-        if use_prng:
-            eps = _normals(n, q[0].shape[-1])
-        else:
-            eps = eps_ref[t]
-        q, qd, tgt, cq, sq, fk, obs, act, rew = _step3_fast(
-            c, mlp, sigma, q, qd, tgt, eps, cq, sq, fk, task_oh)
-        obs_out[t] = obs.astype(obs_out.dtype)
-        act_out[t] = act.astype(act_out.dtype)
-        rew_out[t] = rew
-        return (q, qd, tgt, cq, sq, fk)
-
-    def outer(o, st):
-        q, qd, tgt = st
-        cq = [jnp.cos(x) for x in q]
-        sq = [jnp.sin(x) for x in q]
-        fk = _fk3(c, cq, sq)
-        st2 = jax.lax.fori_loop(0, K, lambda jj, s: inner(jj, s, o * K),
-                                (q, qd, tgt, cq, sq, fk))
-        return st2[:3]
-
-    qf, qdf, tgtf = jax.lax.fori_loop(0, Tc // K, outer, (q, qd, tgt))
-    state_ref[0:n] = jnp.concatenate(qf, axis=0)
-    state_ref[n:2 * n] = jnp.concatenate(qdf, axis=0)
-    state_ref[2 * n:2 * n + 3] = jnp.concatenate(list(tgtf), axis=0)
-
-
-def pallas_rollout3d(cfg: ExperimentConfig, params, key_or_seed,
-                     n_envs=None, eps=None, block_b: int = 512,
-                     interpret: bool = False, q0=None, qd0=None,
-                     tgt=None, task=None, store_dtype=None,
-                     t_chunk=None):
-    """Fused 3-D rollout. Same contract as envs/arm.py:rollout.
-
-    store_dtype=bf16 emits obs_ff/actions_ff in bf16 straight from the
-    kernel (rewards/dones stay fp32): halves the kernel's output write
-    traffic AND feeds the feature-first update path its HBM-bound
-    operands pre-rounded (see trpo.ff_store_dtype). The batch-major
-    obs/actions copies are cast back to fp32 (they are dead code in the
-    fused train step)."""
+    eps (T, N, n): action noise (drawn from `key` when None). The env
+    count is padded up to the tile with zero states, and the padded
+    envs are dropped from the outputs. store_dtype=bf16 emits
+    obs_ff/actions_ff in bf16 (rewards stay fp32). precision: pl.dot
+    precision of the in-kernel MLP (None: the backend default, TF32 on
+    the GPU; HIGHEST: full fp32)."""
     from ...envs import arm as arm_mod
 
+    assert cfg.done_dist == 0.0, \
+        "the fused rollout has no in-kernel episode resampling"
     c = arm3d_consts(cfg)
-    n = c.n
+    n, T, do = c.n, cfg.horizon, cfg.obs_dim
     N = cfg.n_envs if n_envs is None else n_envs
-    T = cfg.horizon
-    do = cfg.obs_dim
-
-    if isinstance(key_or_seed, int) or jnp.ndim(key_or_seed) == 0:
-        key = jax.random.PRNGKey(key_or_seed)
-    else:
-        key = key_or_seed
-    k_reset, k_seed = jax.random.split(key)
+    k_reset, k_eps = jax.random.split(key)
     if q0 is None:
         state0 = arm_mod.reset(cfg, k_reset, N)
-        q0, qd0, tgt = state0.q, state0.qd, state0.tgt
-        task = state0.task
+        q0, qd0, tgt, task = state0.q, state0.qd, state0.tgt, state0.task
     elif task is None:
         task = jnp.zeros(N, jnp.int32)
-    seed = jax.random.randint(k_seed, (1, 1), 0,
-                              np.iinfo(np.int32).max, dtype=jnp.int32)
-
-    bb = min(block_b, N)
-    assert N % bb == 0
-    terminating = cfg.done_dist > 0.0
-    assert not terminating or eps is None, \
-        "in-kernel early termination resamples episodes from the " \
-        "on-chip PRNG; the eps twin mode runs fixed-horizon only"
-    # T-chunked grid (round 4): chunk dim innermost/sequential; state
-    # carried in VMEM scratch; double-buffered output block shrinks by
-    # T/Tc so the env tile can widen to 1024 (see
-    # _rollout3d_kernel_chunked). Terminating configs keep the
-    # unchunked kernel (in-kernel resets need per-step exact FK anyway).
-    chunked = (t_chunk is not None and 0 < t_chunk < T
-               and not terminating)
-    if chunked:
-        assert T % t_chunk == 0, (T, t_chunk)
-        Tc = t_chunk
-        n_chunks = T // Tc
-        grid = (N // bb, n_chunks)
-        env_ix = lambda i, j: (0, i)
-        const_ix = lambda nd: (lambda i, j: (0,) * nd)
-        t_ix = lambda i, j: (j, 0, i)
+    if eps is None:
+        eps_ff = jax.random.normal(k_eps, (T, n, N))
     else:
-        Tc = T
-        grid = (N // bb,)
-        env_ix = lambda i: (0, i)
-        const_ix = lambda nd: (lambda i: (0,) * nd)
-        t_ix = lambda i: (0, 0, i)
+        eps_ff = jnp.swapaxes(eps, 1, 2)               # (T, n, N)
 
-    q0_ff = q0.T
-    qd0_ff = qd0.T
-    tgt_ff = tgt.T                               # (3, N)
+    bb, num_warps = rollout_tile(N)
+    Np = -(-N // bb) * bb
 
-    L = sum(1 for k in params if k.startswith("W"))
-    Ws = [params[f"W{i}"] for i in range(L)]
-    bs = [params[f"b{i}"][:, None] for i in range(L)]
-    logstd = params["logstd"][:, None]
-    # pair-packed MLP: block-diagonal weights built at trace time; every
-    # in-kernel policy matmul then streams bb/2 lanes (rollout_kernel.py)
-    pack2 = pack2_ok(cfg, bb)
-    if pack2:
-        Ws, bs = pack2_weights(Ws, [b[:, 0] for b in bs])
+    def pad(x):                                        # envs on last axis
+        return jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, Np - N)])
 
-    batch_in = lambda d: pl.BlockSpec((d, bb), env_ix,
-                                      memory_space=pltpu.VMEM)
-    full = lambda shape: pl.BlockSpec(shape, const_ix(len(shape)),
-                                      memory_space=pltpu.VMEM)
-    in_specs = [batch_in(n), batch_in(n), batch_in(3)]
-    inputs = [q0_ff, qd0_ff, tgt_ff]
+    inputs = [pad(q0.T), pad(qd0.T), pad(tgt.T)]
     if cfg.n_tasks > 1:
-        task_oh_ff = jax.nn.one_hot(task, cfg.n_tasks,
-                                    dtype=jnp.float32).T    # (K, N)
-        in_specs.append(batch_in(cfg.n_tasks))
-        inputs.append(task_oh_ff)
-    in_specs += ([full(w.shape) for w in Ws]
-                 + [full(b.shape) for b in bs]
-                 + [full(logstd.shape)])
-    inputs += Ws + bs + [logstd]
+        inputs.append(pad(jax.nn.one_hot(task, cfg.n_tasks,
+                                         dtype=jnp.float32).T))
+    Ws, bs = _padded_mlp(params)
+    inputs += Ws + bs + [params["logstd"], pad(eps_ff)]
 
-    use_prng = eps is None
-    if use_prng:
-        in_specs.append(pl.BlockSpec((1, 1), const_ix(2),
-                                     memory_space=pltpu.SMEM))
-        inputs.append(seed)
-    else:
-        eps_ff = jnp.swapaxes(eps, 1, 2)          # (T, N, n) -> (T, n, N)
-        in_specs.append(pl.BlockSpec((Tc, n, bb), t_ix,
-                                     memory_space=pltpu.VMEM))
-        inputs.append(eps_ff)
-
-    out_specs = [
-        pl.BlockSpec((Tc, do, bb), t_ix, memory_space=pltpu.VMEM),
-        pl.BlockSpec((Tc, n, bb), t_ix, memory_space=pltpu.VMEM),
-        pl.BlockSpec((Tc, 1, bb), t_ix, memory_space=pltpu.VMEM),
-    ]
     st_dt = store_dtype or jnp.float32
-    vma = out_vma(inputs)
-    out_shape = [
-        jax.ShapeDtypeStruct((T, do, N), st_dt, vma=vma),
-        jax.ShapeDtypeStruct((T, n, N), st_dt, vma=vma),
-        jax.ShapeDtypeStruct((T, 1, N), jnp.float32, vma=vma),
-    ]
-    if terminating:
-        out_specs.append(pl.BlockSpec((Tc, 1, bb), t_ix,
-                                      memory_space=pltpu.VMEM))
-        out_shape.append(jax.ShapeDtypeStruct((T, 1, N), jnp.float32,
-                                              vma=vma))
+    out_shape = [jax.ShapeDtypeStruct((T, do, Np), st_dt),
+                 jax.ShapeDtypeStruct((T, n, Np), st_dt),
+                 jax.ShapeDtypeStruct((T, Np), jnp.float32)]
+    kernel = functools.partial(_rollout_kernel, c, T, bb, len(Ws),
+                               precision)
+    obs_ff, act_ff, rew_ff = pl.pallas_call(
+        kernel, out_shape=out_shape, grid=(Np // bb,), backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
+        interpret=interpret, name="fused_rollout")(*inputs)
+    obs_ff, act_ff, rew_ff = (obs_ff[..., :N], act_ff[..., :N],
+                              rew_ff[:, :N])
 
-    if chunked:
-        kernel = functools.partial(_rollout3d_kernel_chunked, c, Tc,
-                                   n_chunks, L, use_prng, pack2)
-        scratch = [pltpu.VMEM((2 * n + 3, bb), jnp.float32)]
-    else:
-        kernel = functools.partial(_rollout3d_kernel, c, T, L, use_prng,
-                                   terminating, pack2)
-        scratch = []
-    outs = pl.pallas_call(
-        kernel, grid=grid, in_specs=in_specs, out_specs=out_specs,
-        out_shape=out_shape, scratch_shapes=scratch,
-        interpret=interpret)(*inputs)
-    obs_ff, act_ff, rew_ff = outs[:3]
-
-    # obs_ff/rewards_ff: kernel-native feature-first views — the ff
-    # update pipeline runs (T, N) end-to-end on them, so the batch-major
-    # copies here are dead code in the fused train step (rollout_kernel)
     f32 = jnp.float32
-    batch = dict(obs=jnp.transpose(obs_ff, (2, 0, 1)).astype(f32),
-                 actions=jnp.transpose(act_ff, (2, 0, 1)).astype(f32),
-                 rewards=jnp.transpose(rew_ff[:, 0, :], (1, 0)),
-                 obs_ff=obs_ff, actions_ff=act_ff,
-                 rewards_ff=rew_ff[:, 0, :])
-    if terminating:
-        # the final step always terminates (fixed buffer end, no
-        # bootstrap) — same convention as envs/arm.py:rollout
-        dones_tn = outs[3][:, 0, :].at[-1].set(1.0)
-        batch["dones_ff"] = dones_tn
-        batch["dones"] = dones_tn.T
-    return batch
+    return dict(obs=jnp.transpose(obs_ff, (2, 0, 1)).astype(f32),
+                actions=jnp.transpose(act_ff, (2, 0, 1)).astype(f32),
+                rewards=rew_ff.T,
+                obs_ff=obs_ff, actions_ff=act_ff, rewards_ff=rew_ff)
 
 
 def rollout3d_reference(cfg: ExperimentConfig, params, q0, qd0, tgt, eps,
                         task=None):
-    """jnp twin (lax.scan over the same component math)."""
+    """Plain twin of the kernel: lax.scan over the same component math
+    on (N,) vectors, with the MLP as XLA dots. eps: (T, N, n)."""
     c = arm3d_consts(cfg)
     n = c.n
     L = sum(1 for k in params if k.startswith("W"))
     Ws = [params[f"W{i}"] for i in range(L)]
     bs = [params[f"b{i}"][:, None] for i in range(L)]
-    sigma = jnp.exp(params["logstd"])[:, None]
-
-    q = [q0.T[i:i + 1] for i in range(n)]
-    qd = [qd0.T[i:i + 1] for i in range(n)]
-    tgt_t = (tgt[:, 0:1].T, tgt[:, 1:2].T, tgt[:, 2:3].T)
+    sigma = list(jnp.exp(params["logstd"]))
     task_oh = None
     if cfg.n_tasks > 1:
         oh = jax.nn.one_hot(task, cfg.n_tasks, dtype=jnp.float32).T
-        task_oh = tuple(oh[i:i + 1] for i in range(cfg.n_tasks))
+        task_oh = tuple(oh)
 
-    mlp = lambda o: _policy_ff(Ws, bs, o)
+    def mlp(rows):
+        return list(_policy_ff(Ws, bs, jnp.stack(rows)))
 
     def body(carry, eps_t):
         q, qd, tgt_c = carry
-        q2, qd2, tgt2, obs, act, rew, _ = _step3(c, mlp, sigma, q, qd,
-                                                 tgt_c, eps_t.T, task_oh)
-        return (q2, qd2, tgt2), (obs, act, rew)
+        q2, qd2, tgt2, obs, act, rew = _step3(c, mlp, sigma, q, qd, tgt_c,
+                                              list(eps_t.T), task_oh)
+        return (q2, qd2, tgt2), (jnp.stack(obs), jnp.stack(act), rew)
 
-    (_, _, _), (obs, act, rew) = jax.lax.scan(body, (q, qd, tgt_t), eps)
+    carry0 = (list(q0.T), list(qd0.T), tuple(tgt.T))
+    _, (obs, act, rew) = jax.lax.scan(body, carry0, eps)
     return dict(obs=jnp.transpose(obs, (2, 0, 1)),
                 actions=jnp.transpose(act, (2, 0, 1)),
-                rewards=jnp.transpose(rew[:, 0, :], (1, 0)))
+                rewards=rew.T)

@@ -9,10 +9,10 @@ envs sharded, parameters replicated. Inside one `shard_map`-wrapped
   iteration — the reference's accelerator DMA boundary, SURVEY.md 5.2),
   the baseline normal equations, and the line-search statistics;
 
-all riding ICI within a slice (DCN across hosts via
-`jax.distributed.initialize`, see `init_distributed`). A 'model' axis is
-reserved in the mesh so tensor parallelism can be enabled for larger
-policies without refactoring call sites (SURVEY.md section 3 table).
+all over NVLink between the cards of a host (and the network across
+hosts via `jax.distributed.initialize`, see `init_distributed`). A
+'model' axis joins the mesh when tensor parallelism is enabled for
+larger policies (parallel/tensor.py).
 
 The update math is IDENTICAL to the single-device path — trpo/update.py
 takes `axis_name` and inserts collectives only where a batch reduction
@@ -40,9 +40,14 @@ MODEL_AXIS = "model"
 
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
               devices=None) -> Mesh:
-    """Mesh over the available devices: ('data', 'model')."""
+    """Mesh over the available devices: a flat ('data',) axis, or
+    ('data', 'model') when the policy is tensor-parallel (n_model > 1).
+    Every card reaches every other at the same rate over NVLink, so the
+    mesh follows the algorithm alone."""
     devices = jax.devices() if devices is None else devices
     n_data = len(devices) // n_model if n_data is None else n_data
+    if n_model == 1:
+        return Mesh(np.asarray(devices[:n_data]), (DATA_AXIS,))
     dev_array = np.asarray(devices[: n_data * n_model]).reshape(
         n_data, n_model)
     return Mesh(dev_array, (DATA_AXIS, MODEL_AXIS))
@@ -52,10 +57,9 @@ def init_distributed(timeout_s: Optional[int] = None):
     """Multi-host entry: call before any jax op on multi-host slices.
     No-op when single-process (SURVEY.md section 5.4).
 
-    On TPU pods `jax.distributed.initialize()` autodetects everything;
-    elsewhere (and in the 2-process CPU test, tests/test_distributed.py)
-    the coordinator/process layout comes from JAX_COORDINATOR_ADDRESS,
-    JAX_NUM_PROCESSES and JAX_PROCESS_ID.
+    The coordinator/process layout comes from JAX_COORDINATOR_ADDRESS,
+    JAX_NUM_PROCESSES and JAX_PROCESS_ID (as in the 2-process CPU test,
+    tests/test_distributed.py).
 
     Failure surfacing (SURVEY.md section 7 failure-detection row): the
     startup barrier waits `timeout_s` seconds (JAX_DIST_INIT_TIMEOUT env
@@ -269,6 +273,9 @@ def train_sharded(cfg: ExperimentConfig, mesh: Mesh, n_iters=None,
     import time
     n_iters = cfg.n_iters if n_iters is None else n_iters
     state = init_state(cfg, seed) if state is None else state
+    # replicated on the mesh from the start, as the step returns it, so
+    # the second step does not compile again for a new input sharding
+    state = jax.device_put(state, NamedSharding(mesh, P()))
     step = make_sharded_train_step(cfg, mesh)
     history = []
     for it in range(n_iters):

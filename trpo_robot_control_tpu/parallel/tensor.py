@@ -34,6 +34,8 @@ without rewiring call sites. Correctness: tests/test_tensor_parallel.py
 """
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 
@@ -83,15 +85,17 @@ def unshard_policy_params(local, n_model: int, idx, model_axis: str):
 
 
 def mean_net_tp(local, obs, model_axis: str):
-    """Sharded tanh-MLP mean: one psum over 'model' per forward."""
+    """Sharded tanh-MLP mean: one psum over 'model' per forward; full
+    fp32 matmuls like models/policy.py:mean_net."""
     L = policy.n_layers(local)
     assert L >= 3, "TP layout needs >= 2 hidden layers"
-    h0 = jnp.tanh(obs @ local["W0"] + local["b0"])
-    z1 = jax.lax.psum(h0 @ local["W1"], model_axis) + local["b1"]
+    mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
+    h0 = jnp.tanh(mm(obs, local["W0"]) + local["b0"])
+    z1 = jax.lax.psum(mm(h0, local["W1"]), model_axis) + local["b1"]
     h = jnp.tanh(z1)
     for i in range(2, L - 1):
-        h = jnp.tanh(h @ local[f"W{i}"] + local[f"b{i}"])
-    return h @ local[f"W{L - 1}"] + local[f"b{L - 1}"]
+        h = jnp.tanh(mm(h, local[f"W{i}"]) + local[f"b{i}"])
+    return mm(h, local[f"W{L - 1}"]) + local[f"b{L - 1}"]
 
 
 def dist_tp(local, obs, model_axis: str):
@@ -195,10 +199,9 @@ def trpo_update_tp(cfg: ExperimentConfig, local, w, batch,
                                  tr.baseline_lr, tr.baseline_epochs,
                                  axis_name=data_axis)
     else:
-        A = _psum(phi_f.T @ phi_f) \
-            + tr.baseline_reg * jnp.eye(F, dtype=phi.dtype)
-        b_vec = _psum(phi_f.T @ targets.reshape(B))
-        w_new = baseline.fit_normal(A, b_vec)
+        A_loc, b_loc = baseline.normal_eq(phi_f, targets.reshape(B))
+        A = _psum(A_loc) + tr.baseline_reg * jnp.eye(F, dtype=phi.dtype)
+        w_new = baseline.fit_normal(A, _psum(b_loc))
 
     obs_f = obs.reshape(B, do)
     act_f = actions.reshape(B, da)

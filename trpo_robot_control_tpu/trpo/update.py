@@ -19,7 +19,7 @@ from jax.flatten_util import ravel_pytree
 from ..configs.base import ExperimentConfig
 from ..models import baseline, policy
 from ..ops.cg import conjugate_gradient
-from ..ops.fvp import make_gn_fvp, make_kl_fvp
+from ..ops.fvp import make_gn_fvp
 from ..ops.gae import gae
 from ..ops.linesearch import line_search
 
@@ -34,7 +34,6 @@ def _psum(x, axis_name):
 
 def trpo_update(cfg: ExperimentConfig, params, w, batch,
                 axis_name: Optional[str] = None,
-                fvp_form: str = "gn",
                 return_directions: bool = False):
     """One TRPO update on a collected batch.
 
@@ -49,24 +48,15 @@ def trpo_update(cfg: ExperimentConfig, params, w, batch,
     B = N * T
 
     # ---- 1) values (old baseline) -> GAE -> whiten -> targets -> refit.
-    # When the batch carries the fused kernels' NATIVE feature-first
+    # When the batch carries the fused rollout kernel's feature-first
     # obs (T, do, N), the whole linear-baseline pipeline runs in that
-    # layout: XLA otherwise materialises a (F, B)-transposed phi through
-    # a chunked while+DUS loop that costs more than the normal-equation
-    # matmul itself (~3x measured at c4 scale). Same math, reassociated.
-    # Round 3: the ff pipeline further decomposes the normal equations
-    # by feature block (models/baseline.py:normal_eq_ff) so the (T,F,N)
-    # phi itself never exists — 42 -> ~17 ms at c5.
+    # layout, (T, N)-native end to end: values_ff returns (T, N), GAE
+    # scans time axis 0, and the normal equations are decomposed by
+    # feature block (models/baseline.py:normal_eq_ff) so the (T, F, N)
+    # phi never exists. Same math, reassociated.
     mlp_baseline = tr.baseline == "mlp"
     obs_ff = batch.get("obs_ff") if not mlp_baseline else None
     if obs_ff is not None:
-        # Round 4: the whole pipeline below is (T, N)-NATIVE — rewards/
-        # dones arrive from the kernels as (T, N) views when available
-        # (rewards_ff/dones_ff), values_ff returns (T, N), GAE scans
-        # time axis 0, and the normal equations consume (T, N) targets
-        # directly. No full-batch (N, T) <-> (T, N) transpose is
-        # emitted anywhere in the fused step (the glue transposes were
-        # part of the c5 "misc" remainder, VERDICT r3 weak #5).
         rewards_tn = batch.get("rewards_ff")
         if rewards_tn is None:
             rewards_tn = rewards.T
@@ -91,28 +81,7 @@ def trpo_update(cfg: ExperimentConfig, params, w, batch,
     targets = adv_raw + values
 
     if obs_ff is not None:
-        # moments: fused Pallas kernel reads obs_ff ONCE (the XLA twin
-        # materialises the (T, 2do+1, N) v-concat and re-reads it —
-        # 10.5 -> ~1.5 ms at c5; ops/pallas/moments_kernel.py)
-        m_impl = tr.moments_impl
-        if m_impl == "auto":
-            # the Mosaic kernel only lowers on TPU; any other backend
-            # (CPU, GPU) takes the XLA twin (interpret-mode coverage of
-            # the kernel lives in tests, not the auto path)
-            m_impl = "pallas" if jax.default_backend() == "tpu" else "xla"
-        if m_impl == "pallas":
-            from ..ops.pallas.moments_kernel import (moments_tiles,
-                                                     pallas_baseline_moments)
-            if moments_tiles(obs_ff.shape[0], obs_ff.shape[2])[0]:
-                A_loc, b_loc = pallas_baseline_moments(
-                    obs_ff, targets, cfg.horizon,
-                    interpret=jax.default_backend() == "cpu")
-            else:                  # no lane-aligned env tile
-                A_loc, b_loc = baseline.normal_eq_ff(obs_ff, targets,
-                                                     cfg.horizon)
-        else:
-            A_loc, b_loc = baseline.normal_eq_ff(obs_ff, targets,
-                                                 cfg.horizon)
+        A_loc, b_loc = baseline.normal_eq_ff(obs_ff, targets, cfg.horizon)
         A = _psum(A_loc, axis_name) \
             + tr.baseline_reg * jnp.eye(A_loc.shape[0], dtype=A_loc.dtype)
         b_vec = _psum(b_loc, axis_name)
@@ -125,10 +94,10 @@ def trpo_update(cfg: ExperimentConfig, params, w, batch,
                                      tr.baseline_lr, tr.baseline_epochs,
                                      axis_name=axis_name)
         else:
-            A = _psum(phi_f.T @ phi_f, axis_name) \
+            A_loc, b_loc = baseline.normal_eq(phi_f, targets.reshape(B))
+            A = _psum(A_loc, axis_name) \
                 + tr.baseline_reg * jnp.eye(F, dtype=phi.dtype)
-            b_vec = _psum(phi_f.T @ targets.reshape(B), axis_name)
-            w_new = baseline.fit_normal(A, b_vec)
+            w_new = baseline.fit_normal(A, _psum(b_loc, axis_name))
 
     # ---- 2) flatten the batch. On the ff path adv is (T, N): align it
     # with the n-major obs_f/act_f order for the (rare) obs_ff-without-
@@ -140,41 +109,17 @@ def trpo_update(cfg: ExperimentConfig, params, w, batch,
 
     # ---- 3) policy gradient of the surrogate at theta_old. With a
     # kernel-emitted batch (obs_ff/actions_ff) the policy math runs in
-    # the same feature-first layout as the baseline pipeline above —
-    # the manual closed-form gradient (models/policy.py:
-    # surrogate_grad_ff) sums over (t, n) with no batch-major arrays,
-    # so the (N, T, do)/(do, B) relayouts disappear from the fused step.
+    # the same feature-first layout as the baseline pipeline above: the
+    # closed-form gradient (models/policy.py:surrogate_grad_ff) sums
+    # over (t, n) with no batch-major arrays.
     theta_old, unravel = ravel_pytree(params)
     ff = obs_ff is not None and "actions_ff" in batch
     if ff:
         act_ff = batch["actions_ff"]
         adv_ff = adv                                # already (T, N)
         store = jnp.bfloat16 if tr.ff_store_dtype == "bf16" else None
-        sg_impl = tr.surrgrad_impl
-        if sg_impl == "auto":
-            # kernel wins 2.8-3.0x at c3-c5 scale (B >= 819k) but is
-            # noise-to-slightly-worse at c2 (B = 102k, where the XLA
-            # form's matmuls already overlap to ~0 marginal cost) —
-            # scripts/probe_pg_kernel.py; gate at the measured
-            # crossover so tiny batches keep the twin. The gate uses
-            # the GLOBAL batch (local B x data-axis size) so a config
-            # picks the same impl sharded and unsharded.
-            B_glob = B * (jax.lax.axis_size(axis_name) if axis_name
-                          else 1)
-            sg_impl = "pallas" if (jax.default_backend() == "tpu"
-                                   and B_glob >= 400_000) else "xla"
-        if sg_impl == "pallas":
-            from ..ops.pallas.pg_kernel import (pallas_surrogate_grad_ff,
-                                                tiles_ok)
-            if not tiles_ok(T, N, params):
-                sg_impl = "xla"                 # no aligned tile
-        if sg_impl == "pallas":
-            g_tree, mu_old_ff, logp_old_ff = pallas_surrogate_grad_ff(
-                params, obs_ff, act_ff, adv_ff,
-                interpret=jax.default_backend() == "cpu")
-        else:
-            g_tree, mu_old_ff, logp_old_ff = policy.surrogate_grad_ff(
-                params, obs_ff, act_ff, adv_ff, store_dtype=store)
+        g_tree, mu_old_ff, logp_old_ff = policy.surrogate_grad_ff(
+            params, obs_ff, act_ff, adv_ff, store_dtype=store)
         logstd_old = params["logstd"]
     else:
         mu_old, logstd_old = policy.dist(params, obs_f)
@@ -192,22 +137,16 @@ def trpo_update(cfg: ExperimentConfig, params, w, batch,
     g = _pmean(g, axis_name)
     surr_old = _pmean(jnp.mean(adv), axis_name)     # ratio == 1
 
-    # ---- 4) CG on the damped FVP (the reference's accelerator boundary,
-    #          SURVEY.md section 5.2 — here: traced matvecs + pmean on ICI)
-    impl = tr.fvp_impl if fvp_form == "gn" else "kl"
-    if impl == "auto":
-        # same TPU-only gate as moments_impl above: Mosaic doesn't
-        # lower on GPU; explicit "pallas" on CPU still runs interpret
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
-    # classic TRPO subsample_factor: the Fisher is an expectation — a
+    # ---- 4) CG on the damped Gauss-Newton FVP (the reference's
+    # accelerator boundary, SURVEY.md section 5.2 — here: traced
+    # matvecs + one pmean per call across the cards).
+    # Classic TRPO subsample_factor: the Fisher is an expectation — a
     # strided subsample estimates it at 1/k the CG cost (stride keeps the
     # subsample spread across envs and timesteps deterministically). On
     # the ff path the stride is taken over time in the (T, do, N)
     # layout: with T % k == 0 that selects the SAME sample set as
     # obs_f[::k] (t = 0 mod k for every env; the Fisher sum is order-
     # free), and only the small subsample gets relaid to (B/k, do).
-    obs_fvp = None
-    fvp = None
     if ff and tr.fvp_subsample > 1:
         assert obs_ff.shape[0] % tr.fvp_subsample == 0, (
             "ff-path fvp_subsample matches obs_f[::k] only when "
@@ -220,42 +159,16 @@ def trpo_update(cfg: ExperimentConfig, params, w, batch,
             # ls_subsample below; the time stride alone is where the
             # bias cliff lives, see TRPOSpec.fvp_env_subsample). XLA
             # fuses both strides into the one gather that materialises
-            # the compact (T', do, N') subsample the kernels consume.
+            # the compact (T', do, N') subsample.
             assert N % tr.fvp_env_subsample == 0, (
                 "fvp_env_subsample needs (local) n_envs % k == 0 so "
                 "the strided env set is sharding-invariant; got N="
                 f"{N}, k={tr.fvp_env_subsample}")
             sub = sub[..., ::tr.fvp_env_subsample]
-        # "pallas_bm" forces the batch-major kernel (the measurement /
-        # fallback arm for the ff-native kernel's A/Bs)
-        if impl == "pallas":
-            # round 5: the ff-native FVP kernel consumes the strided
-            # (T', do, N) subsample AS STORED — no relayout, no
-            # per-call activation re-reads (in-kernel recompute) —
-            # ops/pallas/fvp_ff_kernel.py. Gated (GLOBAL subsample
-            # size, like the surrgrad gate above) at the measured
-            # crossover: at c2 scale (B_sub ~ 26k) the relayout it
-            # deletes is microscopic while its extra association
-            # noise (7.5e-5 on Fv vs the batch-major kernel's 2.7e-7)
-            # flips the KL-boundary acceptance on many iterations —
-            # the batch-major kernel stays the right arm there.
-            from ..ops.pallas.fvp_ff_kernel import make_pallas_gn_fvp_ff
-            from ..ops.pallas.pg_kernel import tiles_ok
-            Ts, Ns = sub.shape[0], sub.shape[2]
-            B_sub = Ts * Ns * (jax.lax.axis_size(axis_name)
-                               if axis_name else 1)
-            forced = tr.fvp_impl == "pallas"    # explicit => no gate
-            if tiles_ok(Ts, Ns, params) and (forced or B_sub >= 64_000):
-                fvp = make_pallas_gn_fvp_ff(
-                    params, unravel, sub, tr.cg_damping,
-                    axis_name=axis_name,
-                    interpret=jax.default_backend() == "cpu")
-        if fvp is None:
-            # fp32 for the batch-major FVP kernel regardless of the
-            # storage dtype (the relayout only touches the 1/k
-            # subsample)
-            obs_fvp = jnp.transpose(sub, (0, 2, 1)).reshape(-1, do) \
-                .astype(jnp.float32)
+        # only the 1/k subsample is relaid to (B/k, do), in fp32
+        # whatever the storage dtype
+        obs_fvp = jnp.transpose(sub, (0, 2, 1)).reshape(-1, do) \
+            .astype(jnp.float32)
     else:
         src_f = obs_f
         if tr.fvp_env_subsample > 1:
@@ -267,16 +180,8 @@ def trpo_update(cfg: ExperimentConfig, params, w, batch,
             src_f = obs[::tr.fvp_env_subsample].reshape(-1, do)
         obs_fvp = src_f[::tr.fvp_subsample] if tr.fvp_subsample > 1 \
             else src_f
-    if fvp is None and impl in ("pallas", "pallas_bm"):
-        from ..ops.pallas.fvp_kernel import make_pallas_gn_fvp
-        fvp = make_pallas_gn_fvp(params, unravel, obs_fvp,
-                                 tr.cg_damping, axis_name=axis_name,
-                                 block_b=2048,
-                                 interpret=jax.default_backend() == "cpu")
-    elif fvp is None:
-        make_fvp = make_gn_fvp if impl != "kl" else make_kl_fvp
-        fvp = make_fvp(params, unravel, obs_fvp, tr.cg_damping,
-                       axis_name=axis_name)
+    fvp = make_gn_fvp(params, unravel, obs_fvp, tr.cg_damping,
+                      axis_name=axis_name)
     x, r_final, cg_residual = conjugate_gradient(fvp, g, tr.cg_iters)
 
     # ---- 5) KL-constrained step size from damped curvature. CG gives
@@ -289,8 +194,8 @@ def trpo_update(cfg: ExperimentConfig, params, w, batch,
     # ls_subsample = k > 1 the acceptance statistics are estimated on a
     # 1/k subsample of ENVS — like the Fisher (fvp_subsample above),
     # the surrogate and KL are batch expectations, and each candidate
-    # eval is a full forward pass over the batch (~10 ms at c5 scale),
-    # so the subsampled estimate costs 1/k. The subsample unit must be
+    # eval is a full forward pass over the batch, so the subsampled
+    # estimate costs 1/k. The subsample unit must be
     # whole TRAJECTORIES, not a time stride: GAE advantages and the
     # state distribution are strongly time-structured, so a t % k slice
     # is a BIASED estimator (measured: KL off 2-3x, mean adv off ~9
@@ -305,7 +210,7 @@ def trpo_update(cfg: ExperimentConfig, params, w, batch,
     # (ratio == 1 at theta_old, so it is the subsample's mean
     # advantage), making the improvement test a paired comparison.
     # Estimator bounds: tests/test_ls_subsample.py; full-scale
-    # accepted-k agreement + convergence A/B: docs/performance.md.
+    # accepted-k agreement + convergence A/B: configs/__init__.py.
     k_ls = tr.ls_subsample
     if k_ls > 1:
         assert N % k_ls == 0, (
